@@ -1,0 +1,54 @@
+"""Flatten and rebuild nested-dict state in ``jax.tree_util``'s order.
+
+The port's state is nested dicts of tensors. Leaf order decides the tier
+buffers' row offsets and the byte-weighted leaf draw of
+``MemoryDomain.inject``, so it must be the reference's: dict keys sorted,
+depth first. Anything that is not a dict is a leaf.
+
+A treedef is ``None`` for a leaf and a tuple of ``(key, treedef)`` pairs,
+in sorted key order, for a dict; it is hashable and compares by structure.
+"""
+from __future__ import annotations
+
+from typing import Any, List, Optional, Tuple
+
+Path = Tuple[str, ...]
+Treedef = Optional[tuple]
+
+
+def flatten_with_path(tree) -> Tuple[List[Tuple[Path, Any]], Treedef]:
+    """``([(key_path, leaf), ...], treedef)`` with keys sorted."""
+    flat: List[Tuple[Path, Any]] = []
+
+    def walk(node, path: Path) -> Treedef:
+        if isinstance(node, dict):
+            return tuple((k, walk(node[k], path + (k,)))
+                         for k in sorted(node))
+        flat.append((path, node))
+        return None
+
+    treedef = walk(tree, ())
+    return flat, treedef
+
+
+def leaves(tree) -> List[Any]:
+    return [leaf for _, leaf in flatten_with_path(tree)[0]]
+
+
+def structure(tree) -> Treedef:
+    return flatten_with_path(tree)[1]
+
+
+def unflatten(treedef: Treedef, leaves_: List[Any]):
+    """Rebuild the nested dicts of ``treedef`` from leaves in order."""
+    it = iter(leaves_)
+
+    def build(td: Treedef):
+        if td is None:
+            return next(it)
+        return {k: build(sub) for k, sub in td}
+
+    out = build(treedef)
+    if next(it, it) is not it:
+        raise ValueError("more leaves than the treedef holds")
+    return out

@@ -1,0 +1,100 @@
+"""Model state of the port: ``init_params`` and ``init_cache``, dense family.
+
+Counterpart of ``repro.models.transformer.init_params``/``init_cache``:
+the same tree, key paths, shapes and dtypes, with per-layer weights stacked
+on a leading layer axis. Values come from a ``torch.Generator`` seeded with
+``seed``: truncated normal on [-2, 2] times the reference's scales (fan-in
+for projections, 0.02 for the embedding, depth-scaled output projections).
+They cannot equal ``jax.random``'s draws; tests that compare the two
+packages carry the reference's state across with ``convert``.
+
+The forward pass waits for its slice of the port (ROADMAP.md, queue 1,
+item 6).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
+
+Params = Dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+# the standard normal's CDF at the truncation bounds -2 and 2
+_CDF_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+_CDF_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def _dense_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1, "
+            "item 12); the port runs the dense family")
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
+    """Random parameters of a dense model, on ``device`` (the card unless
+    given)."""
+    _dense_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pdt = dtype_of(cfg.param_dtype)
+    L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    dh, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+
+    def normal(shape, scale: float) -> torch.Tensor:
+        # inverse-CDF sampling of the truncated normal, in float32
+        t = torch.empty(shape, dtype=torch.float32, device=dev)
+        t.uniform_(2 * _CDF_LO - 1, 2 * _CDF_HI - 1, generator=gen)
+        t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(scale)
+        return t.to(pdt)
+
+    def dense(*shape, scale=None) -> torch.Tensor:
+        return normal(shape, 1.0 / math.sqrt(shape[-2]) if scale is None
+                      else scale)
+
+    def ones(*shape) -> torch.Tensor:
+        return torch.ones(shape, dtype=pdt, device=dev)
+
+    attn = {"wq": dense(L, D, H * dh), "wk": dense(L, D, K * dh),
+            "wv": dense(L, D, K * dh),
+            "wo": dense(L, H * dh, D,
+                        scale=1.0 / math.sqrt(H * dh * 2 * L))}
+    if cfg.qkv_bias:
+        attn.update(bq=torch.zeros((L, H * dh), dtype=pdt, device=dev),
+                    bk=torch.zeros((L, K * dh), dtype=pdt, device=dev),
+                    bv=torch.zeros((L, K * dh), dtype=pdt, device=dev))
+    out_scale = 1.0 / math.sqrt(F * 2 * L)
+    mlp = {"wi": dense(L, D, F), "wo": dense(L, F, D, scale=out_scale)}
+    if cfg.act == "swiglu":
+        mlp["wg"] = dense(L, D, F)
+    p: Params = {
+        "embed": normal((V, D), 0.02),
+        "blocks": {"norm1": ones(L, D), "attn": attn, "norm2": ones(L, D),
+                   "mlp": mlp},
+        "final_norm": ones(D),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = dense(D, V)
+    return p
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               device=None) -> Dict[str, torch.Tensor]:
+    """Decode cache sized for ``max_seq`` positions, zero-filled, on
+    ``device`` (the card unless given)."""
+    _dense_family(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    cdt = dtype_of(cfg.compute_dtype)
+    return {"k": torch.zeros(shape, dtype=cdt, device=dev),
+            "v": torch.zeros(shape, dtype=cdt, device=dev)}
