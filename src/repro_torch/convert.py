@@ -55,8 +55,9 @@ def state_to_numpy(tree):
 
 def sidecar_to_numpy(sidecar) -> Dict[str, Dict[str, np.ndarray]]:
     """Per-tier sidecars in the reference's names and dtypes: ``ecc`` uint8
-    (rows, 256), ``par`` uint8 (rows, 32), ``copy_lo``/``copy_hi`` uint32
-    (rows, 256)."""
+    (rows, 256) for SEC-DED and uint16 (rows, 256) for DEC-TED and BURST,
+    both returned as they are; ``par`` uint8 (rows, 32); and the MIRROR
+    copy as ``copy_lo``/``copy_hi`` uint32 (rows, 256)."""
     out = {}
     for tier, bufs in sidecar.items():
         out[tier] = {}

@@ -1,13 +1,27 @@
-"""Core of the port: tiers, error model, policies, recovery, scrub reports
-and the ``MemoryDomain`` verbs."""
-from repro_torch.core.costmodel import RegionProfile  # noqa: F401
+"""Core of the port: tiers, error model, policies, recovery, scrub reports,
+the ``MemoryDomain`` verbs, measured per-tier ECC outcome rates
+(``eccmeasure``) and the Fig. 5 cost and availability models
+(``costmodel``/``availability``)."""
+from repro_torch.core.availability import (  # noqa: F401
+    PEER_COPY_SECONDS, RECOVERY_SECONDS, WEBSEARCH_VULN, AvailabilityResult,
+    VulnProfile, evaluate_availability, paper_design_availability,
+)
+from repro_torch.core.costmodel import (  # noqa: F401
+    WEBSEARCH, DesignPointCost, RegionProfile, paper_design_costs,
+    policy_cost_saving, region_fractions,
+)
 from repro_torch.core.domain import (  # noqa: F401
     DomainSpec, DomainStats, LeafSpec, MemoryDomain,
 )
+from repro_torch.core.eccmeasure import (  # noqa: F401
+    TierOutcomeRates, measure_class_rates, measured_outcome_rates,
+    measured_tier_rates,
+)
 from repro_torch.core.errormodel import ErrorModel, InjectionPlan  # noqa: F401
 from repro_torch.core.policy import (  # noqa: F401
-    DESIGN_POINTS, REGIONS, HRMPolicy, classify_path, detect_recover,
-    detect_recover_l, mirror_dr_l, typical_server,
+    DESIGN_POINTS, REGIONS, HRMPolicy, burst_dr_l, classify_path,
+    dected_server, detect_recover, detect_recover_l, mirror_dr_l,
+    typical_server,
 )
 from repro_torch.core.recovery import (  # noqa: F401
     BLOCK_BYTES, Response, RestartRequired, RetirementMap, flagged_blocks,

@@ -44,6 +44,8 @@ from repro_torch.core.recovery import (Response, RestartRequired,
 from repro_torch.core.sidecar import ScrubReport, _path_str
 from repro_torch.core.tiers import Tier
 from repro_torch.kernels import ops
+from repro_torch.kernels.burst import burst_encode_words, burst_scrub_words
+from repro_torch.kernels.dected import dected_encode_words, dected_scrub_words
 from repro_torch.kernels.ops import LANES, _round_rows
 from repro_torch.kernels.parity import parity_check_words, parity_encode_words
 from repro_torch.kernels.ref import unpack_bits
@@ -52,10 +54,6 @@ from repro_torch.kernels.secded import secded_encode_words, secded_scrub_words
 # top-level payload keys recognized as roots with their classifier kind
 _ROOT_KIND = {"params": "params", "opt": "opt", "kv_cache": "cache",
               "cache": "cache", "graph": "graph"}
-
-_NOT_PORTED = ("the {} tier has no kernel in the port yet (ROADMAP.md, "
-               "queue 2, items 6-9: the BCH and burst codes)")
-
 
 class LeafSpec(NamedTuple):
     """Static description of one payload leaf."""
@@ -185,12 +183,14 @@ def _encode_tier(tier: Tier, words: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Fresh sidecar buffers of one tier for packed ``words``."""
     if tier is Tier.SECDED:
         return {"ecc": secded_encode_words(words)}
+    if tier is Tier.DECTED:
+        return {"ecc": dected_encode_words(words)}
+    if tier is Tier.BURST:
+        return {"ecc": burst_encode_words(words)}
     if tier is Tier.PARITY_R:
         return {"par": parity_encode_words(words)}
     if tier is Tier.MIRROR:
         return {"copy": words, "par": parity_encode_words(words)}
-    if tier in (Tier.DECTED, Tier.BURST):
-        raise NotImplementedError(_NOT_PORTED.format(tier.value))
     raise ValueError(tier)
 
 
@@ -205,6 +205,12 @@ def _scrub_tier_buf(tier: Tier, words: torch.Tensor, pull, push):
     if tier is Tier.SECDED:
         words2, ecc2, c, u = secded_scrub_words(words, pull("ecc"))
         push("ecc", ecc2)
+    elif tier is Tier.DECTED:
+        words2, ecc2, c, u = dected_scrub_words(words, pull("ecc"))
+        push("ecc", ecc2)
+    elif tier is Tier.BURST:
+        words2, ecc2, c, u = burst_scrub_words(words, pull("ecc"))
+        push("ecc", ecc2)
     elif tier is Tier.PARITY_R:
         _err, cnt = parity_check_words(words, pull("par"))
         return words, torch.zeros_like(cnt), cnt, False
@@ -214,8 +220,6 @@ def _scrub_tier_buf(tier: Tier, words: torch.Tensor, pull, push):
         words2 = torch.where(mask, pull("copy"), words)
         c = mask.sum(1, dtype=torch.int32)
         u = torch.zeros_like(c)
-    elif tier in (Tier.DECTED, Tier.BURST):
-        raise NotImplementedError(_NOT_PORTED.format(tier.value))
     else:
         raise ValueError(tier)
     return words2, c, u, True

@@ -129,8 +129,7 @@ def detect_recover_l() -> HRMPolicy:
 
 
 def dected_server() -> HRMPolicy:
-    """Strong homogeneous baseline: DEC-TED everywhere (non-HRM). The port
-    has no DEC-TED kernel yet, so protecting under it raises."""
+    """Strong homogeneous baseline: DEC-TED everywhere (non-HRM)."""
     return HRMPolicy("dected_server",
                      {r: Tier.DECTED for r in REGIONS},
                      default=Tier.DECTED)
@@ -138,8 +137,7 @@ def dected_server() -> HRMPolicy:
 
 def burst_dr_l() -> HRMPolicy:
     """HRM on less-tested devices with burst-correcting ECC (SEC-DAEC) where
-    detect_recover_l used SEC-DED, Par+R on the bulky tolerant regions. The
-    port has no BURST kernel yet, so protecting under it raises."""
+    detect_recover_l used SEC-DED, Par+R on the bulky tolerant regions."""
     base = detect_recover_l()
     tiers = {r: (Tier.BURST if t == Tier.SECDED else t)
              for r, t in base.tiers.items()}

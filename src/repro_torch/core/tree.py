@@ -7,6 +7,11 @@ depth first. Anything that is not a dict is a leaf.
 
 A treedef is ``None`` for a leaf and a tuple of ``(key, treedef)`` pairs,
 in sorted key order, for a dict; it is hashable and compares by structure.
+
+The recursions are module-level functions, not closures: a recursive
+closure is a reference cycle, and one that holds the leaf list keeps every
+leaf (on the card, gigabytes of struck or corrected copies) alive until
+the cycle collector happens to run.
 """
 from __future__ import annotations
 
@@ -16,18 +21,18 @@ Path = Tuple[str, ...]
 Treedef = Optional[tuple]
 
 
+def _walk(node, path: Path, flat: List[Tuple[Path, Any]]) -> Treedef:
+    if isinstance(node, dict):
+        return tuple((k, _walk(node[k], path + (k,), flat))
+                     for k in sorted(node))
+    flat.append((path, node))
+    return None
+
+
 def flatten_with_path(tree) -> Tuple[List[Tuple[Path, Any]], Treedef]:
     """``([(key_path, leaf), ...], treedef)`` with keys sorted."""
     flat: List[Tuple[Path, Any]] = []
-
-    def walk(node, path: Path) -> Treedef:
-        if isinstance(node, dict):
-            return tuple((k, walk(node[k], path + (k,)))
-                         for k in sorted(node))
-        flat.append((path, node))
-        return None
-
-    treedef = walk(tree, ())
+    treedef = _walk(tree, (), flat)
     return flat, treedef
 
 
@@ -39,16 +44,16 @@ def structure(tree) -> Treedef:
     return flatten_with_path(tree)[1]
 
 
+def _build(td: Treedef, it):
+    if td is None:
+        return next(it)
+    return {k: _build(sub, it) for k, sub in td}
+
+
 def unflatten(treedef: Treedef, leaves_: List[Any]):
     """Rebuild the nested dicts of ``treedef`` from leaves in order."""
     it = iter(leaves_)
-
-    def build(td: Treedef):
-        if td is None:
-            return next(it)
-        return {k: build(sub) for k, sub in td}
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, it) is not it:
         raise ValueError("more leaves than the treedef holds")
     return out

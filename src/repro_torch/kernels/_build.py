@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import hsiao
 
 CSRC = Path(__file__).with_name("csrc")
-SOURCES = ("secded.cu", "parity.cu", "bitflip.cu")
+SOURCES = ("secded.cu", "parity.cu", "bitflip.cu", "bch.cu", "burst.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,12 +43,17 @@ _SIGNATURES = {
     "hrm_parity_encode": (_P, _P, _I64, _P),
     "hrm_parity_check": (_P, _P, _P, _P, _I64, _P),
     "hrm_bitflip": (_P, _I64, _P, _P, _I64, _P),
+    # the BCH and burst entry points take the code by pointer, first
+    "hrm_bch_encode": (_P, _P, _P, _I64, _P),
+    "hrm_bch_scrub": (_P, _P, _P, _P, _P, _P, _P, _I64, _P),
+    "hrm_burst_encode": (_P, _P, _P, _I64, _P),
+    "hrm_burst_scrub": (_P, _P, _P, _P, _P, _P, _P, _I64, _P),
 }
 
 # kernel name -> launches in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "secded_encode", "secded_scrub", "parity_encode", "parity_check",
-    "bitflip")}
+    "bitflip", "bch_encode", "bch_scrub", "burst_encode", "burst_scrub")}
 
 
 def reset_launches() -> None:
@@ -159,10 +164,11 @@ def check_words(words: torch.Tensor) -> None:
 
 
 def check_side(side: torch.Tensor, words: torch.Tensor, width: int,
-               name: str) -> None:
-    """A uint8 sidecar of shape (rows, width) beside ``words``."""
-    if side.dtype != torch.uint8 or tuple(side.shape) != (
+               name: str, dtype: torch.dtype = torch.uint8) -> None:
+    """A sidecar of ``dtype`` and shape (rows, width) beside ``words``:
+    uint8 for parity and SEC-DED, uint16 for DEC-TED and BURST."""
+    if side.dtype != dtype or tuple(side.shape) != (
             words.shape[0], width) or not side.is_contiguous():
-        raise ValueError(f"expected contiguous uint8 {name} of shape "
+        raise ValueError(f"expected contiguous {dtype} {name} of shape "
                          f"({words.shape[0]}, {width}), got {side.dtype} "
                          f"{tuple(side.shape)}")

@@ -15,6 +15,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.bitflip import bitflip_words_
+from repro_torch.kernels.burst import burst_encode_words, burst_scrub_words
+from repro_torch.kernels.dected import dected_encode_words, dected_scrub_words
 from repro_torch.kernels.parity import parity_check_words, parity_encode_words
 from repro_torch.kernels.ref import unpack_bits
 from repro_torch.kernels.secded import secded_encode_words, secded_scrub_words
@@ -86,6 +88,46 @@ def secded_scrub(x: torch.Tensor, ecc: torch.Tensor
     Returns (corrected tensor, corrected ecc, n_corrected, n_uncorrectable).
     """
     words, ecc2, corr, unc = secded_scrub_words(pack_words(x), ecc)
+    return (unpack_words(words, x.shape, x.dtype), ecc2, corr.sum(),
+            unc.sum())
+
+
+# --------------------------------------------------------------- DEC-TED
+def dected_encode(x: torch.Tensor) -> torch.Tensor:
+    """DEC-TED sidecar for tensor ``x``: (M, LANES) uint16 (25% capacity,
+    15 valid code bits per 64-bit word)."""
+    return dected_encode_words(pack_words(x))
+
+
+def dected_scrub(x: torch.Tensor, ecc: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """Scrub tensor against its DEC-TED sidecar.
+
+    Returns (corrected tensor, corrected ecc (uint16), n_corrected,
+    n_uncorrectable). Corrects all 1/2-bit word errors, detects 3-bit.
+    """
+    words, ecc2, corr, unc = dected_scrub_words(pack_words(x), ecc)
+    return (unpack_words(words, x.shape, x.dtype), ecc2, corr.sum(),
+            unc.sum())
+
+
+# ------------------------------------------------------------ burst/DAEC
+def burst_encode(x: torch.Tensor) -> torch.Tensor:
+    """SEC-DAEC sidecar for tensor ``x``: (M, LANES) uint16 (25% capacity,
+    14 valid code bits per 64-bit word)."""
+    return burst_encode_words(pack_words(x))
+
+
+def burst_scrub(x: torch.Tensor, ecc: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """Scrub tensor against its SEC-DAEC sidecar.
+
+    Returns (corrected tensor, corrected ecc (uint16), n_corrected,
+    n_uncorrectable). Corrects singles and adjacent doubles.
+    """
+    words, ecc2, corr, unc = burst_scrub_words(pack_words(x), ecc)
     return (unpack_words(words, x.shape, x.dtype), ecc2, corr.sum(),
             unc.sum())
 

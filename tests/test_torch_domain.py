@@ -2,11 +2,15 @@
 byte: the same state (carried across through numpy), policy and numpy seed
 give the same paths, leaf layout, sidecars, payload, per-path scrub counts,
 hard-error map, recovery events and retired blocks, under the paper's
-design points and a mixed NONE/PARITY_R/SECDED/MIRROR policy, on a bare
-params tree and on a ``{params, kv_cache}`` state.
+design points, the strong-ECC ``dected_server`` and ``burst_dr_l``, a mixed
+NONE/PARITY_R/SECDED/MIRROR policy and a mixed policy with DECTED and BURST
+regions, on a bare params tree and on a ``{params, kv_cache}`` state.
 
 The JAX side runs as its own tests run it: Pallas in interpret mode on the
 CPU. The port runs its plain kernel versions on the CPU."""
+import gc
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,18 +35,27 @@ from repro_torch.core import (DESIGN_POINTS, HRMPolicy, InjectionPlan,
 from repro_torch.models import init_cache, init_params
 
 POLICIES = ["typical_server", "detect_recover", "detect_recover_l",
-            "mirror_dr_l", "mixed"]
-_MIXED = {"params/embed": "secded", "params/attn": "mirror",
-          "params/mlp": "parity_r", "params/norm": "none",
-          "kv_cache": "secded"}
+            "mirror_dr_l", "dected_server", "burst_dr_l", "mixed",
+            "mixed_strong"]
+_MIXED = {
+    "mixed": {"params/embed": "secded", "params/attn": "mirror",
+              "params/mlp": "parity_r", "params/norm": "none",
+              "kv_cache": "secded"},
+    "mixed_strong": {"params/embed": "burst", "params/attn": "dected",
+                     "params/mlp": "parity_r", "params/norm": "secded",
+                     "kv_cache": "dected"},
+}
+# tiers that correct every single-bit strike in place
+_CORRECTING = (Tier.SECDED, Tier.DECTED, Tier.BURST, Tier.MIRROR)
 
 
 def _policies(name):
     """The (reference, port) pair of one named policy."""
-    if name != "mixed":
+    if name not in _MIXED:
         return JDESIGN_POINTS[name](), DESIGN_POINTS[name]()
-    return (JPolicy("mixed", {r: JTier(t) for r, t in _MIXED.items()}),
-            HRMPolicy("mixed", {r: Tier(t) for r, t in _MIXED.items()}))
+    tiers = _MIXED[name]
+    return (JPolicy(name, {r: JTier(t) for r, t in tiers.items()}),
+            HRMPolicy(name, {r: Tier(t) for r, t in tiers.items()}))
 
 
 @pytest.fixture(scope="module")
@@ -194,7 +207,7 @@ def test_single_bit_strikes_are_restored(jstate, name):
                            _bytes_t(tdom.leaf(s.path)))
         if s.tier is not Tier.NONE:
             assert same, s.path
-            if s.tier in (Tier.SECDED, Tier.MIRROR):
+            if s.tier in _CORRECTING:
                 assert int(rep.detected_uncorrectable[s.path]) == 0
         elif s.path not in struck:
             assert same, s.path
@@ -315,9 +328,17 @@ def test_unsupported_leaves_and_tiers(jparams):
             (js.path, js.tier.value, js.rows, js.row_start, js.dtype)
     assert tdom.tier_of("step") is Tier.NONE and tdom.spec.by_path[
         "step"].rows == 0
+    # every tier has its kernels: the strong-ECC design points protect too,
+    # byte-identical to the reference, and leave the int64 leaf unprotected
     for name in ("dected_server", "burst_dr_l"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MemoryDomain.protect(_port_state(jparams), DESIGN_POINTS[name]())
+        jdom = JDomain.protect(jtree, JDESIGN_POINTS[name]())
+        tdom = MemoryDomain.protect(
+            {"w": _port_state({"w": jparams["final_norm"]})["w"],
+             "step": torch.arange(3, dtype=torch.int64)},
+            DESIGN_POINTS[name]())
+        assert tdom.tier_of("step") is Tier.NONE
+        assert tdom.tier_of("w") is not Tier.NONE
+        _same(jdom, tdom)
 
 
 def test_port_model_state_has_the_reference_layout(jparams):
@@ -358,6 +379,36 @@ def test_tree_order_and_paths_are_jax_order():
     assert tree.structure(rebuilt) == treedef
     with pytest.raises(ValueError):
         tree.unflatten(treedef, [0] * 6)
+
+
+@pytest.mark.parametrize("name", ["typical_server", "detect_recover",
+                                  "dected_server", "burst_dr_l"])
+def test_verbs_leave_no_reference_cycle(jstate, name):
+    """Dropping the domains a main-path run made frees their struck and
+    corrected leaves and sidecars at once: no reference cycle keeps them
+    alive until the cycle collector runs (on the card that held gigabytes
+    past their use)."""
+    tdom = MemoryDomain.protect(_port_state(jstate), _policies(name)[1])
+    clean = _clean(tdom)
+    gc.collect()
+    gc.disable()
+    try:
+        bad, _ = tdom.inject(np.random.default_rng(3), 16,
+                             multi_bit_fraction=0.0)
+        fixed, rep = bad.scrub()
+        rec, _ = fixed.recover(rep, clean_copy=clean.__getitem__)
+        def tensors(d):
+            return d._leaves() + [t for bufs in d.sidecar.values()
+                                  for t in bufs.values()]
+
+        kept = {id(t) for t in tensors(tdom)}     # shared with the original
+        refs = [weakref.ref(t) for d in (bad, fixed, rec)
+                for t in tensors(d) if id(t) not in kept]
+        assert refs
+        del bad, fixed, rec, rep
+        assert [r for r in refs if r() is not None] == []
+    finally:
+        gc.enable()
 
 
 def test_scrub_report_totals_and_merge():
