@@ -33,10 +33,22 @@ Needs one CUDA card (an H100: the kernels build for ``sm_90a``) and
 5. measures the per-tier outcome rates (``core.eccmeasure``) of PARITY_R,
    SECDED, DECTED, BURST and MIRROR through the kernels, holds them equal
    to the same measurement on the CPU (the plain versions), and prints the
-   Fig. 5 cost and availability rows with them.
+   Fig. 5 cost and availability rows with them;
+6. the graph workload: holds the push, blocked-push and frontier kernels
+   against their plain versions on 8 Mi edges (a hub of 10**6 in-edges,
+   sentinel padding, struck ids and block tables; integer x bit for bit,
+   float32 x within the stated tolerance), builds the Graph500 scale-22
+   graph (``powerlaw_graph(2**22, avg_degree=16)``) dense and in
+   65,536-node blocks on the card, holds the kernels again on those
+   tensors, then drives PageRank (dense, blocked), BFS (dense,
+   frontier-sparse) and the scrubbed drills under ``detect_recover_l``,
+   each path's launches counted on their own, against the plain versions'
+   run and scipy's BFS; times the three kernels beside their byte bound,
+   their plain versions and ``index_add_``, and prints the card's PageRank
+   edges/s, sparse-BFS speedup and scrub-overlap overhead.
 
 Its last line is ``{"ok": true, "device": {...}}``; the line before it
-lists the kernels as JSON: ``launches`` sums the seven paths' counts, which
+lists the kernels as JSON: ``launches`` sums the main paths' counts, which
 ``launches_by_path`` lists. Any failure raises.
 """
 from __future__ import annotations
@@ -77,7 +89,24 @@ KERNELS = {
     "bch_scrub": (CSRC + "bch.cu", "src/repro/kernels/bch.py:363"),
     "burst_encode": (CSRC + "burst.cu", "src/repro/kernels/burst.py:143"),
     "burst_scrub": (CSRC + "burst.cu", "src/repro/kernels/burst.py:167"),
+    "segsum_push": (CSRC + "segsum.cu", "src/repro/kernels/segsum.py:145"),
+    "segsum_push_blocked": (CSRC + "segsum.cu",
+                            "src/repro/kernels/segsum.py:278"),
+    "frontier_update": (CSRC + "segsum.cu",
+                        "src/repro/kernels/segsum.py:368"),
 }
+GRAPH_KERNELS = ("segsum_push", "segsum_push_blocked", "frontier_update")
+GRAPH_SCALE = 22               # Graph500 problem scale: 2**22 vertices
+GRAPH_DEGREE = 16              # Graph500 edge factor
+GRAPH_NODE_BLOCK = 65536
+PR_ITERS = 20
+SCRUB_ITERS, SCRUB_SLICES = 16, 8
+PUSH_CHECK_EDGES = 1 << 23     # 8 Mi edges per push-kernel check
+HOT_EDGES = 10 ** 6            # in-edges of the checks' hot destination
+# push results are held to the plain version's at rtol + ATOL_REL x max|y|:
+# both sum in float64 and round once, but the kernels' atomics add in an
+# order that changes from run to run, which can move a rounding by one ulp
+PUSH_RTOL, PUSH_ATOL_REL = 1e-5, 1e-7
 
 
 def _sync():
@@ -436,12 +465,12 @@ def _needed_kernels(dom) -> set:
     return need
 
 
-def _path_launches(name: str, dom, by_path: dict) -> None:
+def _path_launches(name: str, need: set, by_path: dict) -> None:
     """Record the launches of path ``name`` (counted since its reset) and
-    fail if it skipped a kernel its tiers need."""
+    fail if it skipped a kernel of ``need``."""
     from repro_torch.kernels import _build
     by_path[name] = dict(_build.LAUNCHES)
-    missing = sorted(k for k in _needed_kernels(dom) if not by_path[name][k])
+    missing = sorted(k for k in need if not by_path[name][k])
     print(f"launches {name}: " + json.dumps(by_path[name]))
     if missing:
         raise AssertionError(f"{name} never launched {missing}")
@@ -503,7 +532,7 @@ def run_main_path(state):
         _check_restored(rec, dom, events, report)
         del bad, fixed, rec        # the storm strikes the clean domain
         storm = _burst_storm(dom, rng)
-        _path_launches(name, dom, by_path)
+        _path_launches(name, _needed_kernels(dom), by_path)
         none_hits = sum(dom.tier_of(e["path"]) is Tier.NONE for e in events)
         st = dom.stats()
         peaks.append(torch.cuda.max_memory_allocated())
@@ -533,7 +562,7 @@ def run_main_path(state):
                                  retire_after=3)
         bad = bad.reassert_hard()
     _sync()
-    _path_launches("hard_drill", dom, by_path)
+    _path_launches("hard_drill", _needed_kernels(dom), by_path)
     _check_restored(bad, dom, [], report)
     if retired.count() < 1 or bad.hard_errors:
         raise AssertionError(f"retired {retired.count()} blocks, "
@@ -621,14 +650,14 @@ def check_main_shapes(state, dev, chunk_rows: int = 1 << 16):
     check bit, and the scrub or check kernel runs on the struck buffer. The
     plain versions run over row chunks of the same card tensors."""
     from repro_torch.core import DESIGN_POINTS, MemoryDomain, Tier
-    from repro_torch.core.domain import _gather_packed
+    from repro_torch.core.domain import _gather_packed, _whole
     from repro_torch.kernels import ref
     from repro_torch.kernels.bitflip import bitflip_words_
     from repro_torch.kernels.parity import (parity_check_plain,
                                             parity_check_words)
     codecs = _ecc_codecs()
     out = {k: {"words": 0, "mismatches": 0, "max_abs_err": 0}
-           for k in KERNELS}
+           for k in KERNELS if k not in GRAPH_KERNELS}
 
     def tally(kernel, words, agree):
         rec = out[kernel]
@@ -643,7 +672,7 @@ def check_main_shapes(state, dev, chunk_rows: int = 1 << 16):
         leaves = dom._leaves()
         for tier, (rows, sel) in sorted(dom.spec.groups.items(),
                                         key=lambda g: g[0].value):
-            words = _gather_packed(leaves, sel, rows)
+            words = _gather_packed(leaves, _whole(sel), rows)
             sc = dom.sidecar[tier.value]
             n = rows * 256
             codec = codecs.get(tier)
@@ -778,10 +807,11 @@ def _tier_buffer(state, design: str, tier):
     """(packed words, sidecar) of ``tier``'s full buffer under ``design``,
     as ``protect`` builds them."""
     from repro_torch.core import DESIGN_POINTS, MemoryDomain
-    from repro_torch.core.domain import _gather_packed
+    from repro_torch.core.domain import _gather_packed, _whole
     dom = MemoryDomain.protect(state, DESIGN_POINTS[design]())
     rows, sel = dom.spec.groups[tier]
-    return _gather_packed(dom._leaves(), sel, rows), dom.sidecar[tier.value]
+    return (_gather_packed(dom._leaves(), _whole(sel), rows),
+            dom.sidecar[tier.value])
 
 
 def time_kernels(state, chunk_rows: int = 1 << 16):
@@ -946,6 +976,464 @@ def measured_fig5(dev):
     return launches
 
 
+# ------------------------------------------------------------ 6. graph
+def _hold(got: torch.Tensor, want: torch.Tensor, exact: bool):
+    """(mismatching elements, max abs difference) of a kernel's output
+    against its plain version's: equal bits when ``exact``, else within
+    PUSH_RTOL and PUSH_ATOL_REL x max|want|."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    diff = (got.double() - want.double()).abs()
+    if exact:
+        bad = got != want
+    else:
+        atol = PUSH_ATOL_REL * float(want.abs().max())
+        bad = diff > PUSH_RTOL * want.double().abs() + atol
+    return int(bad.sum()), float(diff.max()) if diff.numel() else 0.0
+
+
+def _tally(out: dict, name: str, count: int, held) -> None:
+    rec = out.setdefault(name, {"words": 0, "mismatches": 0,
+                                "max_abs_err": 0.0})
+    rec["words"] += count
+    rec["mismatches"] += held[0]
+    rec["max_abs_err"] = max(rec["max_abs_err"], held[1])
+
+
+def _check_push_pair(out, name, kernel, plain, xs) -> None:
+    """``kernel(x)`` against ``plain(x)`` for each (x, exact) of ``xs``."""
+    for x, exact in xs:
+        _tally(out, name, 0, _hold(kernel(x), plain(x), exact))
+
+
+def _frontier_inputs(rng, n: int, dev):
+    """pushed (zeros, positive, negative, NaN and infinite mass), visited
+    (0/1 and a few struck values) and dist, (1, n) on the card."""
+    pushed = rng.random(n).astype(np.float32)
+    pushed[rng.random(n) < 0.6] = 0.0
+    special = rng.choice(n, 4 * 1024, replace=False)
+    pushed[special] = np.repeat(np.float32([-1.0, np.nan, np.inf, -np.inf]),
+                                1024)
+    visited = (rng.random(n) < 0.5).astype(np.int32)
+    visited[rng.choice(n, 1024, replace=False)] = 1 << 20
+    dist = np.where(visited > 0, rng.integers(0, 7, n), -1).astype(np.int32)
+    return tuple(torch.from_numpy(a.reshape(1, n)).to(dev)
+                 for a in (pushed, visited, dist))
+
+
+def check_graph_kernels(dev):
+    """Kernels 10-12 against their plain versions on the card: 8 Mi edges
+    over 2**22 nodes sorted by destination, HOT_EDGES of them into one
+    node, 1/64 sentinel padding, 1/256 struck ids (negative and far out of
+    range); the blocked push on the same edges bucketed in 65,536-node
+    blocks with struck ids and 64 struck ``src_block`` entries; integer x
+    (every order sums it exactly: bit for bit) and random float32 x
+    (within the push tolerance); the frontier step on 2**22 nodes, exact."""
+    from repro_torch.graph import bucket_edges
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.segsum import (edge_segment_push,
+                                            edge_segment_push_blocked,
+                                            frontier_update)
+    rng = np.random.default_rng(SEED + 6)
+    n, e, bn = 1 << GRAPH_SCALE, PUSH_CHECK_EDGES, GRAPH_NODE_BLOCK
+    hub = n // 3
+    src = rng.integers(0, n, e)
+    dst = np.sort(np.concatenate([rng.integers(0, n, e - HOT_EDGES),
+                                  np.full(HOT_EDGES, hub)]))
+    bsrc, bdst, tsb, tdb = bucket_edges(src, dst, n, bn)
+    src[-e // 64:] = n
+    dst[-e // 64:] = n
+
+    def strike(ids, k):
+        hit = rng.choice(ids.size, k, replace=False)
+        ids[hit] = rng.integers(-4 * n, 4 * n, k)
+
+    for ids in (src, dst, bsrc, bdst):
+        strike(ids, e // 512)
+    tsb[rng.choice(tsb.size, 64, replace=False)] = rng.integers(
+        -8, n // bn + 8, 64)
+    card = [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (src, dst, bsrc, bdst, tsb, tdb)]
+    xs = [(torch.from_numpy(rng.integers(0, 8, (1, n)).astype(
+              np.float32)).to(dev), True),
+          (torch.from_numpy(rng.random((1, n)).astype(np.float32)).to(dev),
+           False)]
+    before = dict(_build.LAUNCHES)
+    out = {}
+    _check_push_pair(out, "segsum_push",
+                     lambda x: edge_segment_push(card[0], card[1], x),
+                     lambda x: ref.edge_segment_push_ref(card[0], card[1], x),
+                     xs)
+    blocked = card[2:]
+    _check_push_pair(
+        out, "segsum_push_blocked",
+        lambda x: edge_segment_push_blocked(*blocked, x, node_block=bn),
+        lambda x: ref.edge_segment_push_blocked_ref(*blocked, x,
+                                                    node_block=bn), xs)
+    out["segsum_push"]["words"] = e
+    out["segsum_push_blocked"]["words"] = int(bsrc.size)
+    fr = _frontier_inputs(rng, n, dev)
+    for level in (1, 7):
+        for got, want in zip(frontier_update(*fr, level),
+                             ref.frontier_update_ref(*fr, level)):
+            _tally(out, "frontier_update", n, _hold(got, want, True))
+    _sync()
+    hub_in = int((card[1] == hub).sum())
+    for name, rec in out.items():
+        rec["launches"] = _build.LAUNCHES[name] - before[name]
+    print("graph kernels (push: integer x bit-exact, float32 x within "
+          f"rtol {PUSH_RTOL} + {PUSH_ATOL_REL} x max|y| of the plain "
+          "version's float64 sums; frontier bit-exact; hub in-edges "
+          f"{hub_in}): " + "; ".join(
+              f"{k} edges_or_nodes={v['words']} mismatches={v['mismatches']} "
+              f"max_abs_err={v['max_abs_err']!r} launches={v['launches']}"
+              for k, v in out.items()))
+    bad = [k for k, v in out.items() if v["mismatches"] or not v["launches"]]
+    if bad:
+        raise AssertionError(f"graph kernels disagree with their plain "
+                             f"versions or did not launch: {bad}")
+    return out
+
+
+def graph_build(dev):
+    """Graph500 scale 22, edge factor 16: ``powerlaw_graph(2**22,
+    avg_degree=16)`` on the host, then its dense and node-blocked states
+    on the card."""
+    from repro_torch.graph import graph_state, powerlaw_graph
+    t = time.perf_counter()
+    g = powerlaw_graph(1 << GRAPH_SCALE, avg_degree=GRAPH_DEGREE, seed=SEED)
+    gen_s = time.perf_counter() - t
+    (dense, dense_ms) = _timed(lambda: graph_state(g, with_bfs=True,
+                                                   source=0, device=dev))
+    (blocked, blocked_ms) = _timed(lambda: graph_state(
+        g, with_bfs=True, source=0, node_block=GRAPH_NODE_BLOCK,
+        device=dev))
+    tiles = int(blocked["topology"]["blocks"]["src_block"].shape[0])
+    print(f"graph: powerlaw_graph(2**{GRAPH_SCALE}, avg_degree="
+          f"{GRAPH_DEGREE}, seed={SEED}) nodes={g.n} edges={g.n_edges} "
+          f"max_in_degree={g.max_in_degree} max_out_degree="
+          f"{int(g.out_degree.max())} dense_edges_padded="
+          f"{dense['topology']['src'].shape[0]} blocked_edges_padded="
+          f"{blocked['topology']['src'].shape[0]} tiles={tiles} "
+          f"node_block={GRAPH_NODE_BLOCK} host_generate_s={gen_s:.1f} "
+          f"dense_state_s={dense_ms / 1e3:.1f} blocked_state_s="
+          f"{blocked_ms / 1e3:.1f} (bucketing included)")
+    return g, dense, blocked
+
+
+def _pagerank_x(state) -> torch.Tensor:
+    """The push's input of PageRank's first iteration on ``state``."""
+    outdeg = state["topology"]["outdeg"].float()
+    rank = state["rank"]["rank"]
+    return torch.where(outdeg > 0, rank / outdeg.clamp_min(1.0), 0.0)
+
+
+def check_graph_main_shapes(g, dense, blocked):
+    """Kernels 10-12 against their plain versions on the main path's
+    tensors: both pushes over the whole graph with integer x (bit for bit)
+    and with PageRank's first input (within the push tolerance), the
+    frontier step over the 2**22-node vectors."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segsum import (edge_segment_push,
+                                            edge_segment_push_blocked,
+                                            frontier_update)
+    gen = torch.Generator(device=dense["rank"]["rank"].device)
+    gen.manual_seed(SEED + 7)
+    out = {}
+    for name, state, kernel, plain in (
+            ("segsum_push", dense,
+             lambda t, x: edge_segment_push(t["src"], t["dst"], x),
+             lambda t, x: ref.edge_segment_push_ref(t["src"], t["dst"], x)),
+            ("segsum_push_blocked", blocked,
+             lambda t, x: edge_segment_push_blocked(
+                 t["src"], t["dst"], t["blocks"]["src_block"],
+                 t["blocks"]["dst_block"], x, node_block=GRAPH_NODE_BLOCK),
+             lambda t, x: ref.edge_segment_push_blocked_ref(
+                 t["src"], t["dst"], t["blocks"]["src_block"],
+                 t["blocks"]["dst_block"], x, node_block=GRAPH_NODE_BLOCK))):
+        topo = state["topology"]
+        x_int = torch.randint(0, 8, state["rank"]["rank"].shape,
+                              generator=gen, device=gen.device).float()
+        _check_push_pair(out, name, lambda x: kernel(topo, x),
+                         lambda x: plain(topo, x),
+                         [(x_int, True), (_pagerank_x(state), False)])
+        out[name]["words"] = int(topo["src"].shape[0])
+    fr = blocked["frontier"]
+    topo = blocked["topology"]
+    pushed = edge_segment_push_blocked(
+        topo["src"], topo["dst"], topo["blocks"]["src_block"],
+        topo["blocks"]["dst_block"], fr["frontier"].float(),
+        node_block=GRAPH_NODE_BLOCK)
+    for got, want in zip(frontier_update(pushed, fr["visited"], fr["dist"],
+                                         1),
+                         ref.frontier_update_ref(pushed, fr["visited"],
+                                                 fr["dist"], 1)):
+        _tally(out, "frontier_update", got.numel(), _hold(got, want, True))
+    _sync()
+    print("graph kernels at main-path shapes: " + "; ".join(
+        f"{k} edges_or_nodes={v['words']} mismatches={v['mismatches']} "
+        f"max_abs_err={v['max_abs_err']!r}" for k, v in out.items()))
+    bad = [k for k, v in out.items() if v["mismatches"]]
+    if bad:
+        raise AssertionError(f"graph kernels disagree with their plain "
+                             f"versions at the main path's shapes: {bad}")
+    return out
+
+
+def _bfs_golden(g) -> torch.Tensor:
+    """BFS distances from node 0 by scipy's shortest paths on the CSR
+    (edge u -> v is row u, column v), -1 where unreached."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import shortest_path
+    adj = sp.csr_matrix((np.ones(g.n_edges, np.int8), g.indices, g.indptr),
+                        shape=(g.n, g.n)).T.tocsr()
+    d = shortest_path(adj, directed=True, unweighted=True, indices=0)
+    return torch.from_numpy(np.where(np.isfinite(d), d, -1).astype(np.int32))
+
+
+def _same_domain(a, b) -> bool:
+    """Two domains hold the same payload and sidecar bytes."""
+    if any(not torch.equal(_bytes(a.leaf(p)), _bytes(b.leaf(p)))
+           for p in a.paths()):
+        return False
+    return all(torch.equal(_bytes(a.sidecar[t][k]), _bytes(b.sidecar[t][k]))
+               for t in a.sidecar for k in a.sidecar[t])
+
+
+def _graph_scrubbed(g, blocked, golden_top, golden_dist):
+    """Under detect_recover_l (topology on SEC-DED, rank and frontier on
+    Par+R): a single-bit strike into a ``src`` id, healed by
+    ``pagerank_scrubbed``'s slices with the top-8 equal to golden;
+    ``bfs_scrubbed`` with ``dist`` equal to golden (on the clean domain:
+    a BFS level can cross a struck edge before its slice is scrubbed); 16
+    strikes scrubbed by the 8 cursors of ``scrub_partial``, equal bit for
+    bit to one ``scrub``. Returns the printed summary."""
+    from repro_torch.core import InjectionPlan, MemoryDomain, detect_recover_l
+    from repro_torch.graph import bfs_scrubbed, pagerank_scrubbed, top_k
+    dom = MemoryDomain.protect({"graph": blocked}, detect_recover_l())
+    src_words = dom.spec.by_path["graph/topology/src"].rows * 256
+    plan = InjectionPlan(np.array([src_words // 3], np.int32),
+                         np.array([20], np.int32), hard=False)
+    struck = dom.apply_plan("graph/topology/src", plan)
+    (healed, rank, _, rep), pr_ms = _timed(lambda: pagerank_scrubbed(
+        struck, g.n, iters=SCRUB_ITERS, scrub_slices=SCRUB_SLICES))
+    corr, unc = rep.totals()
+    topo_ok = all(torch.equal(healed.leaf(p), dom.leaf(p))
+                  for p in dom.paths() if "/topology/" in p)
+    top_ok = torch.equal(top_k(rank, g.n, 8).cpu(), golden_top)
+    (_, dist, brep), bfs_ms = _timed(lambda: bfs_scrubbed(
+        dom, scrub_slices=SCRUB_SLICES))
+    bcorr, bunc = brep.totals()
+    dist_ok = torch.equal(dist[0, :g.n].cpu(), golden_dist)
+    bad, _ = dom.inject(np.random.default_rng(SEED), 16,
+                        multi_bit_fraction=0.0)
+    full, frep = bad.scrub()
+    part, total = bad, 0
+    for c in range(SCRUB_SLICES):
+        part, prep = part.scrub_partial(c, slices=SCRUB_SLICES)
+        total += prep.totals()[0]
+    cycle_ok = _same_domain(full, part) and total == frep.totals()[0]
+    summary = (f"graph_scrubbed (detect_recover_l): strike "
+               f"graph/topology/src word {src_words // 3} bit 20; "
+               f"pagerank_scrubbed iters={SCRUB_ITERS} slices="
+               f"{SCRUB_SLICES} corrected={corr} uncorrectable={unc} "
+               f"topology_restored={topo_ok} top8_equal_golden={top_ok} "
+               f"ms={pr_ms:.1f}; bfs_scrubbed corrected={bcorr} "
+               f"uncorrectable={bunc} "
+               f"dist_equal_golden={dist_ok} ms={bfs_ms:.1f}; scrub_partial "
+               f"x{SCRUB_SLICES} == scrub: {cycle_ok} (corrected {total})")
+    if not (corr >= 1 and not unc and topo_ok and top_ok and not bcorr
+            and not bunc and dist_ok and cycle_ok and total):
+        raise AssertionError(summary)
+    return summary
+
+
+def run_graph_paths(g, dense, blocked, by_path: dict):
+    """The graph workload's main paths, each with its launch counters
+    reset just before it: PageRank (20 iterations) dense and node-blocked,
+    BFS from node 0 dense and frontier-sparse, and the scrubbed drills;
+    then each result held against the plain versions' run on the card
+    (ranks within the push tolerance, top-8 equal; distances equal, and
+    equal to scipy's)."""
+    from repro_torch.core import DESIGN_POINTS, MemoryDomain
+    from repro_torch.graph import bfs, pagerank, top_k
+    from repro_torch.kernels import _build
+    n = g.n
+    graph_dom = MemoryDomain.protect({"graph": blocked},
+                                     DESIGN_POINTS["detect_recover_l"]())
+    need_scrub = _needed_kernels(graph_dom) | {"segsum_push_blocked",
+                                               "frontier_update"}
+    del graph_dom
+    golden_dist = _bfs_golden(g)
+    _, gold_rank, _ = pagerank(blocked, n, iters=SCRUB_ITERS)
+    golden_top = top_k(gold_rank, n, 8).cpu()
+    del gold_rank
+    results, lines = {}, []
+    for name, need, fn in (
+            ("pagerank_dense", {"segsum_push"},
+             lambda: pagerank(dense, n, iters=PR_ITERS)[1]),
+            ("pagerank_blocked", {"segsum_push_blocked"},
+             lambda: pagerank(blocked, n, iters=PR_ITERS)[1]),
+            ("bfs_dense", {"segsum_push", "frontier_update"},
+             lambda: bfs(dense)[1]),
+            ("bfs_sparse", {"segsum_push_blocked", "frontier_update"},
+             lambda: bfs(blocked)[1]),
+            ("graph_scrubbed", need_scrub,
+             lambda: _graph_scrubbed(g, blocked, golden_top, golden_dist))):
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        results[name], ms = _timed(fn)
+        _path_launches(name, need, by_path)
+        lines.append(f"{name}: wall_ms={ms:.1f} peak_bytes="
+                     f"{torch.cuda.max_memory_allocated()}")
+    print(results.pop("graph_scrubbed"))
+    for line in lines:
+        print(line)
+    plain = {"pagerank_dense": pagerank(dense, n, iters=PR_ITERS,
+                                        backend="segment_sum")[1],
+             "pagerank_blocked": pagerank(blocked, n, iters=PR_ITERS,
+                                          backend="segment_sum")[1],
+             "bfs_dense": bfs(dense, backend="segment_sum")[1],
+             "bfs_sparse": bfs(blocked, backend="segment_sum")[1]}
+    top_plain = top_k(plain["pagerank_dense"], n, 8)
+    checks = {}
+    for name in ("pagerank_dense", "pagerank_blocked"):
+        mism, err = _hold(results[name], plain[name], False)
+        checks[name + " vs plain"] = not mism
+        checks[name + " top8"] = torch.equal(top_k(results[name], n, 8),
+                                             top_plain)
+        print(f"{name}: rank vs plain version mismatches={mism} "
+              f"max_abs_err={err!r} "
+              f"top8={top_k(results[name], n, 8).tolist()}")
+    checks["pagerank dense vs blocked"] = not _hold(
+        results["pagerank_dense"], results["pagerank_blocked"], False)[0]
+    for name in ("bfs_dense", "bfs_sparse"):
+        checks[name + " vs plain"] = torch.equal(results[name], plain[name])
+        checks[name + " vs scipy"] = torch.equal(
+            results[name][0, :n].cpu(), golden_dist)
+    checks["bfs dense vs sparse"] = torch.equal(results["bfs_dense"],
+                                                results["bfs_sparse"])
+    levels = int(results["bfs_sparse"].max())
+    print(f"graph checks (levels={levels}, reached="
+          f"{int((golden_dist >= 0).sum())}): " + json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError(f"graph paths disagree: {checks}")
+
+
+def time_graph(g, dense, blocked):
+    """Kernels 10-12 and their plain versions at the main path's shapes
+    (CUDA events; PageRank's first push input, the first BFS level), each
+    beside its byte bound and, for the pushes, one ``index_add_`` of the
+    pre-masked contributions into N + 1 bins, timed as a yardstick only.
+    The bound is the bytes: a push does one float64 add per counted edge
+    (``ops``, printed) against 8 bytes of ids, the frontier step a compare
+    per node against 24 bytes, so no operation bound is computed and the
+    kernels line carries ``ops_bound_ms`` null for them. Then the card's
+    versions of ``BENCH_graph_scale.json``'s quantities:
+    PageRank edges/s dense and blocked, frontier-sparse over dense-blocked
+    BFS speedup, and ``pagerank_scrubbed``'s overhead per iteration over
+    the plain loop."""
+    from repro_torch.core import MemoryDomain, detect_recover_l
+    from repro_torch.graph import bfs, pagerank, pagerank_scrubbed
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segsum import (edge_segment_push,
+                                            edge_segment_push_blocked,
+                                            frontier_update)
+    n_pad = dense["rank"]["rank"].shape[1]
+    out = {}
+    for name, state in (("segsum_push", dense),
+                        ("segsum_push_blocked", blocked)):
+        topo = state["topology"]
+        src, dst = topo["src"], topo["dst"]
+        x = _pagerank_x(state)
+        e = src.shape[0]
+        nbytes = e * 8 + n_pad * 8
+        if name == "segsum_push":
+            kern = lambda: edge_segment_push(src, dst, x)
+            plain = lambda: ref.edge_segment_push_ref(src, dst, x)
+            ok = (src >= 0) & (src < n_pad) & (dst >= 0) & (dst < n_pad)
+        else:
+            sb, db = topo["blocks"]["src_block"], topo["blocks"]["dst_block"]
+            kern = lambda: edge_segment_push_blocked(
+                src, dst, sb, db, x, node_block=GRAPH_NODE_BLOCK)
+            plain = lambda: ref.edge_segment_push_blocked_ref(
+                src, dst, sb, db, x, node_block=GRAPH_NODE_BLOCK)
+            nbytes += sb.shape[0] * 8
+            te = e // sb.shape[0]
+            bn = GRAPH_NODE_BLOCK
+            sbe = sb.long().repeat_interleave(te) * bn
+            dbe = db.long().repeat_interleave(te) * bn
+            ok = (src >= sbe) & (src < sbe + bn) & (dst >= dbe) & \
+                (dst < dbe + bn)
+            del sbe, dbe
+        contrib = torch.where(ok, x[0, src.clamp(0, n_pad - 1).long()], 0.0)
+        seg = torch.where(ok, dst, n_pad)
+        adds = int(ok.sum())
+        del ok
+
+        def library():
+            return torch.zeros(n_pad + 1, device=x.device).index_add_(
+                0, seg, contrib)
+
+        out[name] = {"ms": _cuda_ms(kern, reps=20),
+                     "plain_ms": _cuda_ms(plain, reps=3),
+                     "library_ms": _cuda_ms(library, reps=20),
+                     "bytes": nbytes, "ops": adds}
+        del contrib, seg
+    fr = blocked["frontier"]
+    pushed = edge_segment_push_blocked(
+        blocked["topology"]["src"], blocked["topology"]["dst"],
+        blocked["topology"]["blocks"]["src_block"],
+        blocked["topology"]["blocks"]["dst_block"], fr["frontier"].float(),
+        node_block=GRAPH_NODE_BLOCK)
+    args = (pushed, fr["visited"], fr["dist"], 1)
+    out["frontier_update"] = {
+        "ms": _cuda_ms(lambda: frontier_update(*args), reps=50),
+        "plain_ms": _cuda_ms(lambda: ref.frontier_update_ref(*args), reps=10),
+        "library_ms": None, "bytes": n_pad * 24, "ops": n_pad}
+    for name, rec in out.items():
+        rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+        rec["bound_by"] = "bytes"
+        rec["ops_bound_ms"] = None
+        lib = rec["library_ms"]
+        print(f"time {name}: ms={rec['ms']:.4f} plain_ms="
+              f"{rec['plain_ms']:.3f} library_ms="
+              f"{'null' if lib is None else f'{lib:.4f}'} bound_ms="
+              f"{rec['bound_ms']:.4f} (bytes={rec['bytes']}) ops="
+              f"{rec['ops']} of_bound={rec['bound_ms'] / rec['ms']:.3f}")
+    # BENCH_graph_scale.json's quantities, warm, on the card
+    n = g.n
+    per_iter = {}
+    for name, state in (("dense", dense), ("blocked", blocked)):
+        pagerank(state, n, iters=1)
+        _, ms = _timed(lambda: pagerank(state, n, iters=PR_ITERS))
+        per_iter[name] = ms / PR_ITERS
+    bfs(blocked)
+    (_, dist), sparse_ms = _timed(lambda: bfs(blocked))
+    bfs(blocked, sparse=False)
+    _, blocked_dense_ms = _timed(lambda: bfs(blocked, sparse=False))
+    _, dense_ms = _timed(lambda: bfs(dense))
+    dom = MemoryDomain.protect({"graph": blocked}, detect_recover_l())
+    pagerank_scrubbed(dom, n, iters=SCRUB_SLICES, scrub_slices=SCRUB_SLICES)
+    _, scrub_ms = _timed(lambda: pagerank_scrubbed(
+        dom, n, iters=SCRUB_ITERS, scrub_slices=SCRUB_SLICES))
+    _, plain_ms = _timed(lambda: pagerank(blocked, n, iters=SCRUB_ITERS))
+    scrub_iter, plain_iter = scrub_ms / SCRUB_ITERS, plain_ms / SCRUB_ITERS
+    print(f"graph_scale (card): pagerank_iter_ms dense={per_iter['dense']:.3f}"
+          f" blocked={per_iter['blocked']:.3f} edges_per_s dense="
+          f"{g.n_edges / per_iter['dense'] * 1e3:.4g} blocked="
+          f"{g.n_edges / per_iter['blocked'] * 1e3:.4g}; bfs levels="
+          f"{int(dist.max())} sparse_ms={sparse_ms:.1f} "
+          f"dense_blocked_ms={blocked_dense_ms:.1f} dense_layout_ms="
+          f"{dense_ms:.1f} sparse_speedup={blocked_dense_ms / sparse_ms:.3f}"
+          f"; pagerank_scrubbed iter_ms={scrub_iter:.3f} plain_iter_ms="
+          f"{plain_iter:.3f} overhead_pct="
+          f"{100 * (scrub_iter - plain_iter) / plain_iter:.1f} "
+          f"(detect_recover_l, slices={SCRUB_SLICES})")
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -980,6 +1468,13 @@ def main() -> int:
     phase("3b_profile", profile_scrub, state)
     times = phase("4_times", time_kernels, state)
     phase("5_rates_fig5", measured_fig5, dev)
+    checks.update(phase("6_graph_check", check_graph_kernels, dev))
+    graph = phase("6_graph_build", graph_build, dev)
+    full.update(phase("6_graph_main_shapes", check_graph_main_shapes,
+                      *graph))
+    phase("6_graph_paths", run_graph_paths, *graph, by_path)
+    times.update(phase("6_graph_times", time_graph, *graph))
+    del graph
     print(f"phase_s={json.dumps(phase_s)}")
     print(f"peak_memory_bytes_run={torch.cuda.max_memory_allocated()}")
     print(f"wall_s={time.perf_counter() - t0:.1f}")
@@ -996,7 +1491,7 @@ def main() -> int:
          "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"],
          "ops_bound_ms": times[name]["ops_bound_ms"],
-         "library_ms": None}
+         "library_ms": times[name].get("library_ms")}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,11 @@ Counterpart of ``repro.core.domain``. A ``MemoryDomain`` owns
     hard_errors      live sticky (hard) errors, re-asserted on writes
     spec             static region->tier assignment and buffer layout
 
-and the verbs ``protect``, ``scrub``, ``inject``, ``apply_plan``,
-``reassert_hard``, ``clear_hard``, ``recover``, ``refresh``, ``adopt``,
-``with_leaf``, ``stats`` and ``region_profile``. Every verb returns a new
-domain and leaves the one it was called on as it was.
+and the verbs ``protect``, ``scrub``, ``scrub_partial``, ``inject``,
+``apply_plan``, ``reassert_hard``, ``clear_hard``, ``recover``,
+``refresh``, ``adopt``, ``with_leaf``, ``stats`` and ``region_profile``.
+Every verb returns a new domain and leaves the one it was called on as it
+was.
 
 Execution is tier-batched as in the reference: the payload is flattened
 once (in ``jax.tree_util`` order, see ``core.tree``), same-tier leaves are
@@ -150,33 +151,76 @@ def _tier_order(groups) -> List[Tier]:
     return sorted(groups, key=lambda t: t.value)
 
 
-def _gather_packed(leaves, sel: Tuple[LeafSpec, ...], rows: int
-                   ) -> torch.Tensor:
-    """Pack the selected leaves, in order, into one (rows, LANES) buffer;
-    rows past the leaves are zero."""
-    buf = torch.empty((rows, LANES), dtype=torch.int64,
-                      device=leaves[sel[0].pos].device)
-    off = 0
+Piece = Tuple[LeafSpec, int, int]   # a leaf and its packed rows [a, b)
+_ROW_BYTES = LANES * 8
+
+
+def _whole(sel: Tuple[LeafSpec, ...]) -> Tuple[Piece, ...]:
+    """Every row of each selected leaf."""
+    return tuple((s, 0, s.rows) for s in sel)
+
+
+def _window(sel: Tuple[LeafSpec, ...], lo: int, hi: int
+            ) -> Tuple[Piece, ...]:
+    """The leaf pieces in rows ``[lo, hi)`` of the selected leaves' rows
+    laid end to end, in leaf-local rows."""
+    out, off = [], 0
     for s in sel:
-        ops.pack_words_into(buf[off:off + s.rows], leaves[s.pos])
+        a, b = max(lo - off, 0), min(hi - off, s.rows)
+        if a < b:
+            out.append((s, a, b))
         off += s.rows
+    return tuple(out)
+
+
+def _leaf_bytes(leaf: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """The bytes of packed rows ``[a, b)`` of ``leaf`` (the leaf's last row
+    may be short)."""
+    return leaf.reshape(-1).view(torch.uint8)[a * _ROW_BYTES:b * _ROW_BYTES]
+
+
+def _gather_packed(leaves, pieces: Tuple[Piece, ...], rows: int
+                   ) -> torch.Tensor:
+    """Pack the pieces, in order, into one (rows, LANES) buffer; rows past
+    them are zero."""
+    buf = torch.empty((rows, LANES), dtype=torch.int64,
+                      device=leaves[pieces[0][0].pos].device)
+    off = 0
+    for s, a, b in pieces:
+        ops.pack_words_into(buf[off:off + b - a],
+                            _leaf_bytes(leaves[s.pos], a, b))
+        off += b - a
     buf[off:].zero_()
     return buf
 
 
-def _gather_rows(buf: torch.Tensor, sel: Tuple[LeafSpec, ...]
+def _gather_rows(buf: torch.Tensor, pieces: Tuple[Piece, ...]
                  ) -> torch.Tensor:
-    return torch.cat([buf[s.row_start:s.row_start + s.rows] for s in sel])
+    return torch.cat([buf[s.row_start + a:s.row_start + b]
+                      for s, a, b in pieces])
 
 
-def _scatter_rows(buf: torch.Tensor, sel: Tuple[LeafSpec, ...],
+def _scatter_rows(buf: torch.Tensor, pieces: Tuple[Piece, ...],
                   new: torch.Tensor) -> torch.Tensor:
     out = buf.clone()
     off = 0
-    for s in sel:
-        out[s.row_start:s.row_start + s.rows] = new[off:off + s.rows]
-        off += s.rows
+    for s, a, b in pieces:
+        out[s.row_start + a:s.row_start + b] = new[off:off + b - a]
+        off += b - a
     return out
+
+
+def _unpack_piece(leaves, piece: Piece, words: torch.Tensor
+                  ) -> torch.Tensor:
+    """The piece's leaf with its rows replaced by ``words``: a view of
+    ``words`` when the piece is the whole leaf, else a copy of the leaf."""
+    s, a, b = piece
+    if a == 0 and b == s.rows:
+        return ops.unpack_words(words, s.shape, s.torch_dtype)
+    leaf = leaves[s.pos].reshape(-1).clone()
+    dst = _leaf_bytes(leaf, a, b)
+    dst.copy_(words.reshape(-1).view(torch.uint8)[:dst.numel()])
+    return leaf.reshape(s.shape)
 
 
 def _encode_tier(tier: Tier, words: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -226,10 +270,17 @@ def _scrub_tier_buf(tier: Tier, words: torch.Tensor, pull, push):
 
 
 def _scrub(spec: DomainSpec, key: Optional[Tuple[str, ...]], leaves,
-           sidecar):
-    """Scrub every selected leaf, tier-batched. Returns (modified
-    {pos: leaf}, new sidecar, corrected {path: n}, uncorrectable
-    {path: n}); the counts are 0-d tensors on the payload's device."""
+           sidecar, window: Optional[Tuple[int, int]] = None):
+    """Scrub the selected leaves, tier-batched: all their rows, or with
+    ``window = (idx, slices)`` row slice ``idx`` of ``slices``. Returns
+    (modified {pos: leaf}, new sidecar, corrected {path: n},
+    uncorrectable {path: n}); the counts are 0-d tensors on the payload's
+    device.
+
+    Per tier the window is rows ``[idx*total//slices,
+    (idx+1)*total//slices)`` of the selected leaves' rows laid end to end,
+    so every tier advances each call and all finish after ``slices`` calls.
+    A row holds whole words of one leaf, so no codeword is split."""
     selected = spec.select(key)
     mod: Dict[int, torch.Tensor] = {}
     new_sc = {k: dict(v) for k, v in sidecar.items()}
@@ -238,28 +289,38 @@ def _scrub(spec: DomainSpec, key: Optional[Tuple[str, ...]], leaves,
     for tier in _tier_order(selected):
         sel = selected[tier]
         full_rows, full_specs = spec.groups[tier]
-        is_full = len(sel) == len(full_specs)
-        total = sum(s.rows for s in sel)
+        if window is None:
+            pieces = _whole(sel)
+            is_full = len(sel) == len(full_specs)
+        else:
+            idx, slices = window
+            total = sum(s.rows for s in sel)
+            pieces = _window(sel, idx * total // slices,
+                             (idx + 1) * total // slices)
+            if not pieces:
+                continue
+            is_full = False
         sc = sidecar[tier.value]
 
         def pull(name):
-            return sc[name] if is_full else _gather_rows(sc[name], sel)
+            return sc[name] if is_full else _gather_rows(sc[name], pieces)
 
         def push(name, new):
             new_sc[tier.value][name] = new if is_full else \
-                _scatter_rows(sc[name], sel, new)
+                _scatter_rows(sc[name], pieces, new)
 
-        words = _gather_packed(leaves, sel, full_rows if is_full else total)
+        rows = full_rows if is_full else sum(b - a for _, a, b in pieces)
+        words = _gather_packed(leaves, pieces, rows)
         words2, c, u, wrote = _scrub_tier_buf(tier, words, pull, push)
         off = 0
-        for s in sel:
-            sl = slice(off, off + s.rows)
+        for piece in pieces:
+            s, a, b = piece
+            sl = slice(off, off + b - a)
             if wrote:
-                mod[s.pos] = ops.unpack_words(words2[sl], s.shape,
-                                              s.torch_dtype)
+                mod[s.pos] = _unpack_piece(leaves, piece, words2[sl])
                 corr[s.path] = c[sl].sum()
             unc[s.path] = u[sl].sum()
-            off += s.rows
+            off += b - a
     # paths in sorted order, as the reference's jit program returns them:
     # recovery walks them in this order
     return mod, new_sc, dict(sorted(corr.items())), dict(sorted(unc.items()))
@@ -272,16 +333,16 @@ def _encode(spec: DomainSpec, key: Optional[Tuple[str, ...]], leaves,
     selected = spec.select(key)
     if key is None:
         return {tier.value: _encode_tier(tier, _gather_packed(
-                    leaves, selected[tier], spec.groups[tier][0]))
+                    leaves, _whole(selected[tier]), spec.groups[tier][0]))
                 for tier in _tier_order(selected)}
     new_sc = {k: dict(v) for k, v in sidecar.items()}
     for tier in _tier_order(selected):
-        sel = selected[tier]
+        pieces = _whole(selected[tier])
         fresh = _encode_tier(tier, _gather_packed(
-            leaves, sel, sum(s.rows for s in sel)))
+            leaves, pieces, sum(s.rows for s, _, _ in pieces)))
         for name, new in fresh.items():
             new_sc[tier.value][name] = _scatter_rows(
-                sidecar[tier.value][name], sel, new)
+                sidecar[tier.value][name], pieces, new)
     return new_sc
 
 
@@ -431,11 +492,31 @@ class MemoryDomain:
             iv = self.spec.policy.scrub_interval
             if iv <= 0 or step % iv != 0:
                 return self, None
+        return self._scrubbed(paths)
+
+    def scrub_partial(self, cursor: int, *, slices: int = 8,
+                      paths: Optional[Iterable[str]] = None
+                      ) -> Tuple["MemoryDomain", ScrubReport]:
+        """Incremental scrub: verify and correct row slice ``cursor %
+        slices`` of the selected leaves (1/``slices`` of each tier's packed
+        rows). Called once per iteration with an advancing cursor, it
+        completes a full pass every ``slices`` calls with only a slice of
+        the work on each iteration's critical path: the scrub/compute
+        overlap behind ``pagerank_scrubbed`` and ``bfs_scrubbed``. One
+        full cycle corrects what one ``scrub()`` would. Returns (domain,
+        ScrubReport of this slice)."""
+        if slices <= 1:
+            return self.scrub(paths=paths)
+        return self._scrubbed(paths, (int(cursor) % slices, int(slices)))
+
+    def _scrubbed(self, paths, window=None
+                  ) -> Tuple["MemoryDomain", ScrubReport]:
         if not self.spec.groups:
             return self, ScrubReport()
         leaves = self._leaves()
         mod, new_sc, corr, unc = _scrub(
-            self.spec, self.spec.paths_key(paths), leaves, self.sidecar)
+            self.spec, self.spec.paths_key(paths), leaves, self.sidecar,
+            window)
         for pos, leaf in mod.items():
             leaves[pos] = leaf
         report = ScrubReport(corrected=corr, detected_uncorrectable=unc)

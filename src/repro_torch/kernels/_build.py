@@ -1,4 +1,4 @@
-"""Build the tier kernels' CUDA sources and call them through ctypes.
+"""Build the port's CUDA kernels and call them through ctypes.
 
 The sources in ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` (H100) at
 first use, one ``nvcc`` process per source started together, then linked
@@ -27,11 +27,12 @@ import torch
 from repro_torch.kernels import hsiao
 
 CSRC = Path(__file__).with_name("csrc")
-SOURCES = ("secded.cu", "parity.cu", "bitflip.cu", "bch.cu", "burst.cu")
+SOURCES = ("secded.cu", "parity.cu", "bitflip.cu", "bch.cu", "burst.cu",
+           "segsum.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# every kernel runs one 256-thread block per packed row (= ops.LANES)
+# every tier kernel runs one 256-thread block per packed row (= ops.LANES)
 ROW_WORDS = 256
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
@@ -48,12 +49,18 @@ _SIGNATURES = {
     "hrm_bch_scrub": (_P, _P, _P, _P, _P, _P, _P, _I64, _P),
     "hrm_burst_encode": (_P, _P, _P, _I64, _P),
     "hrm_burst_scrub": (_P, _P, _P, _P, _P, _P, _P, _I64, _P),
+    # graph kernels: pointers, then sizes (and the BFS level) as int64
+    "hrm_segsum_push": (_P, _P, _P, _P, _P, _I64, _I64, _P),
+    "hrm_segsum_push_blocked": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                                _I64, _I64, _P),
+    "hrm_frontier_update": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
 }
 
 # kernel name -> launches in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "secded_encode", "secded_scrub", "parity_encode", "parity_check",
-    "bitflip", "bch_encode", "bch_scrub", "burst_encode", "burst_scrub")}
+    "bitflip", "bch_encode", "bch_scrub", "burst_encode", "burst_scrub",
+    "segsum_push", "segsum_push_blocked", "frontier_update")}
 
 
 def reset_launches() -> None:

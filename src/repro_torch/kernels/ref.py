@@ -1,5 +1,7 @@
-"""Plain PyTorch versions of the tier kernels, with the semantics of
-``repro.kernels.ref``.
+"""Plain PyTorch versions of the port's kernels: the tier codecs, with the
+semantics of ``repro.kernels.ref``, and the graph push and frontier step,
+with those of ``repro.kernels.segsum``'s ``*_ref`` and ``*_oracle``
+functions.
 
 Words are int64 tensors, one 64-bit word per element, holding the same bits
 as the reference's ``(lo, hi)`` uint32 lane pairs. PyTorch on the CPU has
@@ -261,3 +263,62 @@ def bitflip_ref(words: torch.Tensor, word_idx: torch.Tensor,
     out = flat.clone()
     out[hit] ^= masks
     return out.reshape(words.shape)
+
+
+# ------------------------------------------------------- graph kernels
+def _segment_sum(contrib: torch.Tensor, seg: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """Sum ``contrib`` into ``n + 1`` bins by ``seg`` (bin ``n`` takes the
+    dropped edges) and return the first ``n`` as (1, n).
+
+    The sums are taken in float64 and rounded once to ``contrib``'s dtype,
+    as the push kernels take them, so the order of the additions does not
+    show: a float32 sum over a hub's ~10**6 in-edges, added one by one,
+    drifts by some 2e-5 of its value."""
+    y = torch.zeros(n + 1, dtype=torch.float64, device=contrib.device)
+    y.index_add_(0, seg, contrib.to(torch.float64))
+    return y[:n].to(contrib.dtype).reshape(1, n)
+
+
+def edge_segment_push_ref(src: torch.Tensor, dst: torch.Tensor,
+                          x: torch.Tensor) -> torch.Tensor:
+    """``y[j] = sum_{e: dst[e]==j} x[src[e]]`` for x (1, n): a masked
+    gather, then a segment sum. An edge with an id outside [0, n) (the
+    sentinel padding, a struck or negative id) drops."""
+    n = x.shape[1]
+    src, dst = src.long(), dst.long()
+    src_ok = (src >= 0) & (src < n)
+    contrib = torch.where(src_ok, x[0, src.clamp(0, n - 1)], 0.0)
+    seg = torch.where((dst >= 0) & (dst < n), dst, n)
+    return _segment_sum(contrib, seg, n)
+
+
+def edge_segment_push_blocked_ref(src: torch.Tensor, dst: torch.Tensor,
+                                  src_block: torch.Tensor,
+                                  dst_block: torch.Tensor, x: torch.Tensor, *,
+                                  node_block: int) -> torch.Tensor:
+    """The node-blocked push: edge e of tile t counts only if its src lies
+    in source block ``src_block[t]`` and its dst in destination block
+    ``dst_block[t]``, the block coordinates clipped to the node vector's
+    blocks; any other edge drops."""
+    bn = node_block
+    n = x.shape[1]
+    t = src_block.shape[0]
+    te = src.shape[0] // t
+    nb = n // bn
+    sb = src_block.long().clamp(0, nb - 1).repeat_interleave(te)
+    db = dst_block.long().clamp(0, nb - 1).repeat_interleave(te)
+    src, dst = src.long(), dst.long()
+    src_ok = (src >= sb * bn) & (src < (sb + 1) * bn)
+    dst_ok = (dst >= db * bn) & (dst < (db + 1) * bn)
+    contrib = torch.where(src_ok, x[0, src.clamp(0, n - 1)], 0.0)
+    return _segment_sum(contrib, torch.where(dst_ok, dst, n), n)
+
+
+def frontier_update_ref(pushed: torch.Tensor, visited: torch.Tensor,
+                        dist: torch.Tensor, level: int):
+    """One BFS step: nodes reached by ``pushed`` mass and not yet visited
+    become the frontier, stamped with ``level``. Returns (frontier,
+    visited, dist), all int32."""
+    newly = ((pushed > 0) & (visited == 0)).to(torch.int32)
+    return newly, visited | newly, torch.where(newly > 0, level, dist)
