@@ -29,7 +29,9 @@ Needs one CUDA card (an H100: the kernels build for ``sm_90a``) and
 4. times each kernel at its design point's full tier-buffer shape with
    CUDA events, beside its bound (the bytes it must move over the memory
    rate), the popcount limit of this implementation (its popcounts over
-   the popcount rate) and its plain version's time;
+   the popcount rate) and its plain version's time; the bit-flip kernel,
+   whose call time is host time, also by its device time alone (launches
+   replayed from a CUDA graph);
 5. measures the per-tier outcome rates (``core.eccmeasure``) of PARITY_R,
    SECDED, DECTED, BURST and MIRROR through the kernels, holds them equal
    to the same measurement on the CPU (the plain versions), and prints the
@@ -37,15 +39,21 @@ Needs one CUDA card (an H100: the kernels build for ``sm_90a``) and
 6. the graph workload: holds the push, blocked-push and frontier kernels
    against their plain versions on 8 Mi edges (a hub of 10**6 in-edges,
    sentinel padding, struck ids and block tables; integer x bit for bit,
-   float32 x within the stated tolerance), builds the Graph500 scale-22
+   float32 x within the stated tolerance), the pushes also on edge arrays
+   from edge 1, cut short of whole groups and on different alignments,
+   tiles of 100 edges and tiles that drop every edge; builds the Graph500
+   scale-22
    graph (``powerlaw_graph(2**22, avg_degree=16)``) dense and in
    65,536-node blocks on the card, holds the kernels again on those
    tensors, then drives PageRank (dense, blocked), BFS (dense,
    frontier-sparse) and the scrubbed drills under ``detect_recover_l``,
    each path's launches counted on their own, against the plain versions'
    run and scipy's BFS; times the three kernels beside their byte bound,
-   their plain versions and ``index_add_``, and prints the card's PageRank
-   edges/s, sparse-BFS speedup and scrub-overlap overhead.
+   their plain versions and ``index_add_``, splits each push's call into
+   its device events (memset, push, round) under ``torch.profiler``,
+   counts the float64 atomics each push issues there, and prints the
+   card's PageRank edges/s, sparse-BFS speedup and scrub-overlap
+   overhead.
 
 Its last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels as JSON: ``launches`` sums the main paths' counts, which
@@ -103,6 +111,10 @@ PR_ITERS = 20
 SCRUB_ITERS, SCRUB_SLICES = 16, 8
 PUSH_CHECK_EDGES = 1 << 23     # 8 Mi edges per push-kernel check
 HOT_EDGES = 10 ** 6            # in-edges of the checks' hot destination
+# edges a warp of the push kernels sums before its atomics: 32 lanes x
+# kEdges (8) in csrc/segsum.cu; their one-edge-a-thread forerunner, 32
+PUSH_WARP_EDGES, ONE_EDGE_WARP_EDGES = 256, 32
+BITFLIP_GRAPH_LAUNCHES = 100   # bit-flip launches captured in one CUDA graph
 # push results are held to the plain version's at rtol + ATOL_REL x max|y|:
 # both sum in float64 and round once, but the kernels' atomics add in an
 # order that changes from run to run, which can move a rounding by one ulp
@@ -789,6 +801,22 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _graph_ms(fn, launches: int, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: ``launches`` calls captured in
+    one CUDA graph, replayed ``reps`` times between CUDA events, so no host
+    time falls between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return _cuda_ms(graph.replay, reps) / launches
+
+
 def _popc_per_s() -> float:
     """The card's peak rate of 32-bit popcounts: SMs x POPC_PER_CLOCK_PER_SM
     x the maximum SM clock nvidia-smi reports."""
@@ -912,12 +940,18 @@ def time_kernels(state, chunk_rows: int = 1 << 16):
                      "bound_by": "bytes",
                      "ops_bound_ms": ops_ms, "bytes": nbytes,
                      "popcounts": popc, "rows": r}
+        extra = ""
+        if name == "bitflip":
+            # ms is a call's host and launch time; beside it the kernel's
+            # own time, from launches replayed in a CUDA graph
+            extra = (f" strikes={e} hits={hits} device_ms="
+                     f"{_graph_ms(kern, BITFLIP_GRAPH_LAUNCHES):.5f} "
+                     f"(CUDA graph of {BITFLIP_GRAPH_LAUNCHES} launches)")
         print(f"time {name}: rows={r} words={r * 256} ms={ms:.4f} "
               f"plain_ms={plain_ms:.3f} bound_ms={bytes_ms:.4f} "
               f"(bytes={nbytes}) ops_bound_ms={ops_ms:.4f} "
               f"(popcounts={popc}) of_bound={bytes_ms / ms:.3f} "
-              f"of_ops_bound={ops_ms / ms:.3f}"
-              + (f" strikes={e} hits={hits}" if name == "bitflip" else ""))
+              f"of_ops_bound={ops_ms / ms:.3f}" + extra)
     return out
 
 
@@ -1001,6 +1035,56 @@ def _tally(out: dict, name: str, count: int, held) -> None:
     rec["max_abs_err"] = max(rec["max_abs_err"], held[1])
 
 
+def push_keys(topo: dict, n: int) -> torch.Tensor:
+    """(E,) int32: each edge's destination where the push kernels test it
+    in range (dense: 0 <= dst < n; blocked: in its tile's clipped
+    destination block), else -1, as ``csrc/segsum.cu`` keys its runs."""
+    from repro_torch.graph.generate import node_block_of
+    dst = topo["dst"]
+    blocks = topo.get("blocks")
+    if blocks is None:
+        return torch.where((dst >= 0) & (dst < n), dst, -1)
+    db = blocks["dst_block"]
+    bn = node_block_of({"topology": topo})
+    d0 = (db.long().clamp(0, n // bn - 1) * bn).repeat_interleave(
+        dst.shape[0] // db.shape[0])
+    return torch.where((dst >= d0) & (dst < d0 + bn), dst, -1)
+
+
+def push_atomics(key: torch.Tensor, group: int) -> int:
+    """Float64 atomics a push issues when each run of equal key >= 0 is
+    added once per ``group`` consecutive edges (a warp's edges: 32 x K)."""
+    head = torch.ones_like(key, dtype=torch.bool)
+    head[1:] = key[1:] != key[:-1]
+    head[::group] = True
+    return int((head & (key >= 0)).sum())
+
+
+def profile_split(fn, tries: int = 5) -> list:
+    """[(device event, ms, count)] of one warm call of ``fn`` under
+    ``torch.profiler``: the memset, kernels and copies it ran. On an H100
+    a profiling session late in a long process sometimes returns none of
+    a short call's device events (or a part of them), so the session is
+    repeated, up to
+    ``tries`` times, until the events add up to within 15 % of the call's
+    CUDA-event time; [] if no session did."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    want = _cuda_ms(fn, reps=5)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            _sync()
+        split = [(e.key, e.self_device_time_total / 1e3, e.count)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and e.self_device_time_total > 0]
+        if abs(sum(ms for _, ms, _ in split) - want) <= 0.15 * want:
+            return split
+    return []
+
+
 def _check_push_pair(out, name, kernel, plain, xs) -> None:
     """``kernel(x)`` against ``plain(x)`` for each (x, exact) of ``xs``."""
     for x, exact in xs:
@@ -1029,7 +1113,12 @@ def check_graph_kernels(dev):
     range); the blocked push on the same edges bucketed in 65,536-node
     blocks with struck ids and 64 struck ``src_block`` entries; integer x
     (every order sums it exactly: bit for bit) and random float32 x
-    (within the push tolerance); the frontier step on 2**22 nodes, exact."""
+    (within the push tolerance); the frontier step on 2**22 nodes, exact.
+    The pushes also on the shapes their K-edge groups must handle: edge
+    arrays from edge 1 (not 16-byte aligned, E - 1 edges), cut 3 short of
+    E, and with src and dst on different alignments; the blocked push
+    with 64 tiles whose ``dst_block`` moved (every edge drops), and on the
+    same edges in tiles of 100 (the general tile path), also from edge 1."""
     from repro_torch.graph import bucket_edges
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.segsum import (edge_segment_push,
@@ -1042,6 +1131,7 @@ def check_graph_kernels(dev):
     dst = np.sort(np.concatenate([rng.integers(0, n, e - HOT_EDGES),
                                   np.full(HOT_EDGES, hub)]))
     bsrc, bdst, tsb, tdb = bucket_edges(src, dst, n, bn)
+    odd = list(bucket_edges(src, dst, n, bn, edge_tile=100))
     src[-e // 64:] = n
     dst[-e // 64:] = n
 
@@ -1059,20 +1149,56 @@ def check_graph_kernels(dev):
               np.float32)).to(dev), True),
           (torch.from_numpy(rng.random((1, n)).astype(np.float32)).to(dev),
            False)]
+    # the edge cases draw from their own generator, so the cases above
+    # keep their inputs
+    rng_odd = np.random.default_rng(SEED + 8)
+
+    def moved(tables_db, k):
+        """dst_block with k tiles moved one block on: they drop every
+        edge."""
+        db = tables_db.copy()
+        hit = rng_odd.choice(db.size, k, replace=False)
+        db[hit] = (db[hit] + 1) % (n // bn)
+        return db
+
+    for ids in odd[:2]:
+        hit = rng_odd.choice(ids.size, e // 512, replace=False)
+        ids[hit] = rng_odd.integers(-4 * n, 4 * n, e // 512)
+    odd[3] = moved(odd[3], 64)
+    odd = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in odd]
+    t_odd = odd[2].shape[0] - 1
+    cases = {
+        "segsum_push": {
+            "whole": (card[0], card[1]),
+            "from edge 1": (card[0][1:], card[1][1:]),
+            "E - 3 edges": (card[0][:-3], card[1][:-3]),
+            "src, dst unaligned apart": (card[0][1:-1], card[1][2:])},
+        "segsum_push_blocked": {
+            "tiles of 512": tuple(card[2:]),
+            "64 dst_block moved": (card[2], card[3], card[4], torch.from_numpy(
+                moved(tdb, 64).astype(np.int32)).to(dev)),
+            "tiles of 100": tuple(odd),
+            "tiles of 100 from edge 1": (
+                odd[0][1:1 + 100 * t_odd], odd[1][1:1 + 100 * t_odd],
+                odd[2][:t_odd], odd[3][:t_odd])}}
+    kernels = {
+        "segsum_push": (edge_segment_push, ref.edge_segment_push_ref, {}),
+        "segsum_push_blocked": (edge_segment_push_blocked,
+                                ref.edge_segment_push_blocked_ref,
+                                {"node_block": bn})}
     before = dict(_build.LAUNCHES)
-    out = {}
-    _check_push_pair(out, "segsum_push",
-                     lambda x: edge_segment_push(card[0], card[1], x),
-                     lambda x: ref.edge_segment_push_ref(card[0], card[1], x),
-                     xs)
-    blocked = card[2:]
-    _check_push_pair(
-        out, "segsum_push_blocked",
-        lambda x: edge_segment_push_blocked(*blocked, x, node_block=bn),
-        lambda x: ref.edge_segment_push_blocked_ref(*blocked, x,
-                                                    node_block=bn), xs)
-    out["segsum_push"]["words"] = e
-    out["segsum_push_blocked"]["words"] = int(bsrc.size)
+    out, lines = {}, []
+    for name, by_case in cases.items():
+        kernel, plain, kw = kernels[name]
+        for case, args in by_case.items():
+            seen = out.get(name, {}).get("mismatches", 0)
+            _check_push_pair(out, name, lambda x: kernel(*args, x, **kw),
+                             lambda x: plain(*args, x, **kw), xs)
+            out[name]["words"] += int(args[0].shape[0])
+            lines.append(f"{name} [{case}] edges={args[0].shape[0]} "
+                         f"mismatches={out[name]['mismatches'] - seen}")
+    print("push edge cases (integer x bit-exact, float32 x within the push "
+          "tolerance): " + "; ".join(lines))
     fr = _frontier_inputs(rng, n, dev)
     for level in (1, 7):
         for got, want in zip(frontier_update(*fr, level),
@@ -1329,7 +1455,11 @@ def time_graph(g, dense, blocked):
     The bound is the bytes: a push does one float64 add per counted edge
     (``ops``, printed) against 8 bytes of ids, the frontier step a compare
     per node against 24 bytes, so no operation bound is computed and the
-    kernels line carries ``ops_bound_ms`` null for them. Then the card's
+    kernels line carries ``ops_bound_ms`` null for them. Each push's call
+    is also split into its device events under ``torch.profiler`` and its
+    float64 atomics counted from ``dst`` (one per run of equal destination
+    per warp's edges, this design's and the one-edge-a-thread one's).
+    Then the card's
     versions of ``BENCH_graph_scale.json``'s quantities:
     PageRank edges/s dense and blocked, frontier-sparse over dense-blocked
     BFS speedup, and ``pagerank_scrubbed``'s overhead per iteration over
@@ -1381,6 +1511,17 @@ def time_graph(g, dense, blocked):
                      "library_ms": _cuda_ms(library, reps=20),
                      "bytes": nbytes, "ops": adds}
         del contrib, seg
+        split = profile_split(kern)
+        print(f"profile {name} (one warm call, device time): " + ("; ".join(
+            f"{key[:48]} {ms:.4f} ms" for key, ms, _ in split) or
+            "not measured: no profiling session returned the call's device "
+            "events"))
+        key = push_keys(topo, n_pad)
+        print(f"atomics {name} (float64, counted on the card from dst): "
+              f"{push_atomics(key, PUSH_WARP_EDGES)} at {PUSH_WARP_EDGES}-"
+              f"edge warps; {push_atomics(key, ONE_EDGE_WARP_EDGES)} at "
+              f"{ONE_EDGE_WARP_EDGES}-edge warps (one edge a thread)")
+        del key
     fr = blocked["frontier"]
     pushed = edge_segment_push_blocked(
         blocked["topology"]["src"], blocked["topology"]["dst"],

@@ -95,8 +95,9 @@ def edge_segment_push(src: torch.Tensor, dst: torch.Tensor, x: torch.Tensor
                       ) -> torch.Tensor:
     """src, dst: (E,) int32, sentinel-padded; x: (1, N) float32,
     N % 128 == 0. Returns y (1, N) float32 with
-    ``y[j] = sum_{e: dst[e]==j} x[src[e]]``; ids outside [0, N) drop. One
-    thread takes one edge, so E need not be whole tiles."""
+    ``y[j] = sum_{e: dst[e]==j} x[src[e]]``; ids outside [0, N) drop. E
+    need not be whole tiles, and the edge arrays may start anywhere (a
+    slice such as ``src[1:]``)."""
     e = _check_edges(src, dst)
     n = _check_nodes(x, "x", torch.float32)
     if not _build.on_card(src, dst, x):
@@ -123,8 +124,12 @@ def edge_segment_push_blocked(src: torch.Tensor, dst: torch.Tensor,
     dst in its destination block, the coordinates clipped to the node
     vector's blocks, so a struck id or table drops or reroutes an edge and
     never reads outside ``x``. Blocks no edge reaches come out exactly 0.
+    The kernel finds tiles in 32-bit arithmetic: fewer than 2**32 edges.
     """
     e = _check_edges(src, dst)
+    if e >> 32:
+        raise ValueError(f"{e} edges: the blocked push takes fewer than "
+                         "2**32")
     n = _check_nodes(x, "x", torch.float32)
     _check(src_block, "src_block", torch.int32, 1)
     _check(dst_block, "dst_block", torch.int32, 1)

@@ -210,6 +210,112 @@ def test_blocked_push_non_finite_x_follows_ref():
     assert 0 < int(np.isnan(want).sum()) < n_pad // 4
 
 
+# ------------------------------------ the kernels' K-edge group shapes
+def _hub_edges(seed: int, n_pad: int, e: int):
+    """Dst-sorted edges with runs of 1,300 and 600 edges into two hubs
+    (longer than the 512 edges a tile or a warp's groups hold), sentinel
+    padding at the end and a few struck ids, as numpy int32."""
+    rng = np.random.default_rng(seed)
+    dst = np.sort(np.concatenate([rng.integers(0, n_pad - 1, e - 1900),
+                                  np.full(1300, 7), np.full(600, 200)]))
+    src = rng.integers(0, n_pad - 1, e)
+    src[-40:] = dst[-40:] = n_pad
+    hit = rng.choice(e - 40, 16, replace=False)
+    src[hit[:8]] = rng.integers(-4 * n_pad, 4 * n_pad, 8)
+    dst[hit[8:]] = rng.integers(-4 * n_pad, 4 * n_pad, 8)
+    return rng, src.astype(np.int32), dst.astype(np.int32)
+
+
+@pytest.mark.parametrize("start,stop", [(1, None), (2, None), (3, -5),
+                                        (0, -3), (1, -1), (5, 21), (9, 10)])
+def test_push_on_slices_matches_ref(start, stop):
+    """Edge arrays that start off a 16-byte boundary (``src[1:]``) or end
+    off a whole group (counts not a multiple of 4 or 16), runs of up to
+    1,300 edges: integer x equal to the reference, float x within RTOL."""
+    rng, src, dst = _hub_edges(10 + start, 384, 4004)
+    s, d = src[start:stop], dst[start:stop]
+    assert s.size % 4 or start % 4
+    ts, td = torch.from_numpy(src)[start:stop], torch.from_numpy(dst)[
+        start:stop]
+    assert ts.is_contiguous() and ts.storage_offset() == start
+    for x, check in ((rng.integers(0, 8, (1, 384)).astype(np.float32),
+                      _equal),
+                     (rng.random((1, 384)).astype(np.float32), _close)):
+        check(tseg.edge_segment_push(ts, td, _t(x)),
+              jseg.edge_segment_push_ref(jnp.asarray(s), jnp.asarray(d),
+                                         jnp.asarray(x)))
+
+
+def test_push_with_src_and_dst_on_different_alignments():
+    """src and dst sliced at different offsets (``src[1:-1]``, ``dst[2:]``):
+    the kernel then loads every id alone; the sums are the reference's."""
+    rng, src, dst = _hub_edges(20, 384, 2500)
+    x = rng.integers(0, 8, (1, 384)).astype(np.float32)
+    want = jseg.edge_segment_push_ref(jnp.asarray(src[1:-1]),
+                                      jnp.asarray(dst[2:]), jnp.asarray(x))
+    _equal(tseg.edge_segment_push(torch.from_numpy(src)[1:-1],
+                                  torch.from_numpy(dst)[2:], _t(x)), want)
+
+
+@pytest.mark.parametrize("te,offset,moved", [
+    (3, 0, 8), (17, 0, 4), (100, 0, 16), (100, 1, 16), (1000, 0, 1),
+    (512, 0, 3), (512, 1, 3), (16, 3, 0)])
+def test_blocked_push_odd_tiles_and_dropped_tiles_match_ref(te, offset,
+                                                             moved):
+    """Tiles of any size (the kernel's general tile path), edge arrays from
+    ``offset`` with the tiles counted from there (the tables one shorter),
+    a 1,300-edge run into one node, and ``moved`` tiles whose
+    ``dst_block`` moved one block on, so every edge of theirs drops:
+    integer x equal to the reference."""
+    rng = np.random.default_rng(te + offset)
+    n_pad, bn = 512, 128
+    src = rng.integers(0, n_pad, 3000)
+    dst = np.concatenate([rng.integers(0, n_pad, 1700), np.full(1300, 300)])
+    bsrc, bdst, tsb, tdb = bucket_edges(src, dst, n_pad, bn, edge_tile=te)
+    tdb = tdb.copy()
+    hit = rng.choice(tdb.size, moved, replace=False)
+    tdb[hit] = (tdb[hit] + 1) % (n_pad // bn)
+    t = tsb.size - (offset > 0)
+    arrs = (bsrc[offset:offset + t * te], bdst[offset:offset + t * te],
+            tsb[:t], tdb[:t])
+    x = rng.integers(0, 8, (1, n_pad)).astype(np.float32)
+    want = jseg.edge_segment_push_blocked_ref(
+        *[jnp.asarray(a) for a in arrs], jnp.asarray(x), node_block=bn)
+    y = tseg.edge_segment_push_blocked(
+        torch.from_numpy(bsrc)[offset:offset + t * te],
+        torch.from_numpy(bdst)[offset:offset + t * te],
+        _t(tsb[:t]), _t(tdb[:t]), _t(x), node_block=bn)
+    _equal(y, want)
+    assert float(np.asarray(want)[0, 300]) > 0
+
+
+def test_blocked_push_every_tile_dropped_is_zero():
+    """Every tile's ``dst_block`` moved one block on: no edge counts, and
+    every node comes out exactly 0, as in the reference."""
+    rng, n_pad, arrs = _blocked(11, 500, 1200, 128, 100)
+    bsrc, bdst, tsb, tdb = arrs
+    tdb = (tdb + 1) % (n_pad // 128)
+    x = rng.random((1, n_pad)).astype(np.float32)
+    want = jseg.edge_segment_push_blocked_ref(
+        jnp.asarray(bsrc), jnp.asarray(bdst), jnp.asarray(tsb),
+        jnp.asarray(tdb), jnp.asarray(x), node_block=128)
+    y = tseg.edge_segment_push_blocked(_t(bsrc), _t(bdst), _t(tsb),
+                                       _t(tdb), _t(x), node_block=128)
+    _equal(y, want)
+    assert not y.any()
+
+
+def test_blocked_push_refuses_2_32_edges():
+    """The blocked kernel finds tiles in 32-bit arithmetic; the wrapper
+    refuses 2**32 edges (meta tensors: nothing is allocated)."""
+    e = torch.empty(1 << 32, dtype=torch.int32, device="meta")
+    tiles = torch.empty(1 << 23, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match=r"2\*\*32"):
+        tseg.edge_segment_push_blocked(e, e, tiles, tiles,
+                                       torch.empty((1, 256), device="meta"),
+                                       node_block=128)
+
+
 # ---------------------------------------------------- frontier step
 @pytest.mark.parametrize("n,level", [(128, 1), (1408, 7), (4096, 2)])
 def test_frontier_update_matches_oracle_and_pallas(n, level):
