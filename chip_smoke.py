@@ -53,7 +53,21 @@ Needs one CUDA card (an H100: the kernels build for ``sm_90a``) and
    its device events (memset, push, round) under ``torch.profiler``,
    counts the float64 atomics each push issues there, and prints the
    card's PageRank edges/s, sparse-BFS speedup and scrub-overlap
-   overhead.
+   overhead;
+7. the Fig. 2 campaign (``core.characterize.run_campaign``) on the three
+   applications at their real sizes, each path's launches counted on
+   their own: the web-search LM (phase 3's llama3-8b parameters, the
+   query the greedy tokens of ``lm_batch(cfg, 4, 256)``), the full
+   kvstore-demo (a 2**20-key value table) and PageRank's top-8 on phase
+   6's dense scale-22 state, 64, 64 and 32 trials of each error kind
+   (three queries a hard trial). Before each, three clean re-runs must
+   give the golden tokens bit for bit and a bit flipped twice must
+   classify as masked; after the LM campaign its first 16 trials are
+   re-run with the plain bit flip and must give the same outcomes. Each
+   prints its Fig. 3 and Fig. 4 rows, trials per second and ms per trial
+   split into strike (pack, flip, unpack), query and classify. Then
+   ``python -m repro_torch.launch.explore --workload all --design all
+   --measure`` runs in this process, its ECC rates measured anew.
 
 Its last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels as JSON: ``launches`` sums the main paths' counts, which
@@ -115,6 +129,12 @@ HOT_EDGES = 10 ** 6            # in-edges of the checks' hot destination
 # kEdges (8) in csrc/segsum.cu; their one-edge-a-thread forerunner, 32
 PUSH_WARP_EDGES, ONE_EDGE_WARP_EDGES = 256, 32
 BITFLIP_GRAPH_LAUNCHES = 100   # bit-flip launches captured in one CUDA graph
+CAMPAIGN_BATCH, CAMPAIGN_SEQ = 4, 256   # the web-search LM's query
+LM_TRIALS, KV_TRIALS, GRAPH_TRIALS = 64, 64, 32   # per error kind
+HARD_REPEAT = 3                # queries of a hard trial
+GRAPH_CAMPAIGN_ITERS = 12
+DETERMINISM_RERUNS = 3
+PLAIN_FLIP_TRIALS = 16
 # push results are held to the plain version's at rtol + ATOL_REL x max|y|:
 # both sum in float64 and round once, but the kernels' atomics add in an
 # order that changes from run to run, which can move a rounding by one ulp
@@ -1575,6 +1595,253 @@ def time_graph(g, dense, blocked):
     return out
 
 
+# ------------------------------------------------------- 7. campaigns
+def _timed_eval(ev, log: list):
+    """``ev`` with each query's wall ms, the device synchronised before and
+    after, appended to ``log``."""
+    def timed(state):
+        out, ms = _timed(lambda: ev(state))
+        log.append(ms)
+        return out
+    return timed
+
+
+def _check_query(name: str, ev, dom, unwrap) -> None:
+    """Before the campaign: DETERMINISM_RERUNS clean re-runs give the golden
+    tokens bit for bit, and a plan that flips one bit of the largest leaf
+    twice classifies as masked."""
+    from repro_torch.core import InjectionPlan, Outcome, characterize
+    golden = ev(unwrap(dom.payload))[0]
+    for i in range(DETERMINISM_RERUNS):
+        if not torch.equal(ev(unwrap(dom.payload))[0], golden):
+            raise AssertionError(f"{name}: clean re-run {i + 1} gave other "
+                                 "tokens than the golden run")
+    leaf = max(dom.spec.protectable, key=lambda s: s.nbytes)
+    twice = InjectionPlan(np.array([0, 0] + [-1] * 6, np.int32),
+                          np.array([5, 5] + [0] * 6, np.int32), False)
+    o = characterize._run_trial(dom, leaf, twice, ev, golden, unwrap,
+                                False, "params", False, 1)
+    if o not in (Outcome.MASKED_OVERWRITE, Outcome.MASKED_LOGIC):
+        raise AssertionError(f"{name}: a bit flipped twice classified {o}")
+    print(f"{name}: determinism: {DETERMINISM_RERUNS} clean re-runs == "
+          f"golden bit for bit; {leaf.path} bit flipped twice -> {o.value}")
+
+
+def _strike_split(dom, strikes) -> dict:
+    """Mean ms per trial of the campaign's strikes, replayed on the clean
+    domain (each hard trial applies its plan HARD_REPEAT times): the whole
+    ``apply_plan``, and its pack, flip (with the plan's copy to the card)
+    and unpack, each timed alone with the device synchronised."""
+    from repro_torch.core.domain import _strikes
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bitflip import bitflip_words_
+    tot = dict.fromkeys(("apply", "pack", "flip", "unpack"), 0.0)
+    for kind, s, plan in strikes:
+        leaf = dom.leaf(s.path)
+        for _ in range(HARD_REPEAT if kind == "hard" else 1):
+            tot["apply"] += _timed(lambda: dom.apply_plan(s.path, plan))[1]
+            words, ms = _timed(lambda: ops.pack_words(leaf))
+            tot["pack"] += ms
+            tot["flip"] += _timed(lambda: bitflip_words_(
+                words, *_strikes(plan, leaf.device)))[1]
+            tot["unpack"] += _timed(lambda: ops.unpack_words(
+                words, s.shape, s.torch_dtype))[1]
+            del words
+    return {k: v / len(strikes) for k, v in tot.items()}
+
+
+def _print_figs(name: str, res) -> None:
+    """The Fig. 3 row (crash and incorrect rates by error kind) and the
+    Fig. 4 rows (per region and kind)."""
+    print(f"fig3 {name}: " + "; ".join(
+        f"{kind} crash={res.crash_prob(kind=kind):.4f} "
+        f"incorrect={res.incorrect_prob(kind=kind):.4f}"
+        for kind in ("soft", "hard")) + f"; all crash="
+        f"{res.crash_prob():.4f} incorrect={res.incorrect_prob():.4f}")
+    for (region, kind), st in sorted(res.stats.items()):
+        print(f"fig4 {name}: {region:16s} {kind:4s} crash="
+              f"{st.crash_prob:.4f} incorrect={st.incorrect_prob:.4f} "
+              f"tolerance={st.tolerance:.4f} n={st.total}")
+
+
+def _campaign(name: str, ev, state, n_trials: int, need: set,
+              by_path: dict):
+    """One application's Fig. 2 campaign through ``run_campaign``
+    (n_trials soft and n_trials hard trials, HARD_REPEAT queries a hard
+    trial), its launches counted on their own; prints its rates, trials
+    per second and ms per trial split into strike, query and classify
+    (the rest of the trial: verdicts, the device sync, domain glue).
+    Returns (domain, unwrap, result, strikes)."""
+    from repro_torch.core import characterize
+    from repro_torch.kernels import _build
+    dom, _, unwrap = characterize._campaign_domain(state, "params")
+    _check_query(name, ev, dom, unwrap)
+    evals: list = []
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res, wall_ms = _timed(lambda: characterize.run_campaign(
+        _timed_eval(ev, evals), dom, n_trials=n_trials, seed=SEED,
+        hard_repeat=HARD_REPEAT))
+    _path_launches(name, need, by_path)
+    peak = torch.cuda.max_memory_allocated()
+    strikes = list(characterize._campaign_strikes(
+        dom, n_trials=n_trials, errors_per_trial=1, seed=SEED,
+        kinds=("soft", "hard"), region_filter=None))
+    if [s.path for _, s, _ in strikes] != [p for p, _, _ in res.trials]:
+        raise AssertionError(f"{name}: the replayed strikes differ")
+    split = _strike_split(dom, strikes)
+    trials = len(res.trials)
+    run_ms = wall_ms - evals[0]             # the golden query excluded
+    trial_ms = run_ms / trials
+    eval_ms = sum(evals[1:]) / trials
+    counts = {o.value: sum(t[2] is o for t in res.trials)
+              for o in characterize.Outcome}
+    print(f"campaign {name}: trials={trials} ({n_trials} soft, {n_trials} "
+          f"hard x{HARD_REPEAT} queries) queries={len(evals) - 1} "
+          f"wall_s={run_ms / 1e3:.3f} trials_per_s={trials / run_ms * 1e3:.2f}"
+          f" ms_per_trial={trial_ms:.3f} strike_ms={split['apply']:.3f} "
+          f"(pack={split['pack']:.3f} flip={split['flip']:.3f} "
+          f"unpack={split['unpack']:.4f}) eval_ms={eval_ms:.3f} "
+          f"(golden query {evals[0]:.2f} ms; one query "
+          f"{sum(evals[1:]) / (len(evals) - 1):.3f} ms) classify_ms="
+          f"{trial_ms - eval_ms - split['apply']:.3f} peak_bytes={peak} "
+          f"outcomes={json.dumps(counts)}")
+    _print_figs(name, res)
+    return dom, unwrap, res, strikes
+
+
+def _plain_bitflip(words, word_idx, bit_idx):
+    """``bitflip_words_`` by the plain version, on any device."""
+    from repro_torch.kernels import ref
+    words.copy_(ref.bitflip_ref(words, word_idx, bit_idx))
+    return words
+
+
+def _plain_flip_rerun(name: str, ev, dom, unwrap, res, strikes) -> None:
+    """Re-run the first PLAIN_FLIP_TRIALS trials with the plain bit flip in
+    place of the kernel (``ops.bitflip_words_`` swapped for the length of
+    the re-run); their outcomes must equal the campaign's."""
+    from repro_torch.core import characterize
+    from repro_torch.kernels import _build, ops
+    golden = ev(unwrap(dom.payload))[0]
+    launched = _build.LAUNCHES["bitflip"]
+    kernel_flip, ops.bitflip_words_ = ops.bitflip_words_, _plain_bitflip
+    try:
+        plain = [characterize._run_trial(dom, s, plan, ev, golden, unwrap,
+                                         False, "params", kind == "hard",
+                                         HARD_REPEAT)
+                 for kind, s, plan in strikes[:PLAIN_FLIP_TRIALS]]
+    finally:
+        ops.bitflip_words_ = kernel_flip
+    kernel = [o for _, _, o in res.trials[:PLAIN_FLIP_TRIALS]]
+    same = plain == kernel and _build.LAUNCHES["bitflip"] == launched
+    print(f"{name}: first {PLAIN_FLIP_TRIALS} trials re-run with the plain "
+          f"bit flip: outcomes identical to the kernel's: {same} "
+          f"({[o.value for o in plain]})")
+    if not same:
+        raise AssertionError(f"{name}: plain and kernel bit flips disagree")
+
+
+def _lm_sensitivity(cfg, batch, dom, strikes) -> None:
+    """What an LM trial's verdict reads: the golden logits' top-2 margins
+    over the vocabulary beside their scale, and how many of the query's
+    positions change their greedy token under each of the first
+    PLAIN_FLIP_TRIALS strikes (applied once)."""
+    from repro_torch.models import forward
+    logits = forward(dom.payload, batch, cfg)[0]
+    top2 = logits.topk(2, dim=-1).values.float()
+    margin = (top2[..., 0] - top2[..., 1]).reshape(-1)
+    golden = logits.argmax(-1)
+    scale = float(logits.abs().max())
+    del logits, top2
+    changed = [int((forward(dom.apply_plan(s.path, plan).payload, batch,
+                            cfg)[0].argmax(-1) != golden).sum())
+               for _, s, plan in strikes[:PLAIN_FLIP_TRIALS]]
+    print(f"campaign_lm sensitivity: golden top-2 margin min="
+          f"{float(margin.min()):.3g} median={float(margin.median()):.3g} "
+          f"max|logit|={scale:.3g}; positions changed (of "
+          f"{golden.numel()}) under the first {PLAIN_FLIP_TRIALS} strikes:"
+          f" {changed}")
+
+
+def campaign_lm(params, by_path: dict) -> None:
+    """Web-search LM: llama3-8b at full width, N_LAYERS layers (phase 3's
+    parameters), the query greedy tokens of ``lm_batch(cfg,
+    CAMPAIGN_BATCH, CAMPAIGN_SEQ, SEED)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import lm_eval_fn
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import forward
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 products are on: the queries would not "
+                             "be the float32 model")
+    cfg = get_config("llama3-8b").replace(n_layers=N_LAYERS)
+    batch = lm_batch(cfg, CAMPAIGN_BATCH, CAMPAIGN_SEQ, SEED)
+    ev = lm_eval_fn(cfg, batch, forward)
+    print(f"campaign_lm: llama3-8b layers={cfg.n_layers} query=lm_batch("
+          f"{CAMPAIGN_BATCH}x{CAMPAIGN_SEQ}) compute={cfg.compute_dtype}")
+    dom, unwrap, res, strikes = _campaign("campaign_lm", ev, params,
+                                          LM_TRIALS, {"bitflip"}, by_path)
+    _plain_flip_rerun("campaign_lm", ev, dom, unwrap, res, strikes)
+    _lm_sensitivity(cfg, batch, dom, strikes)
+
+
+def campaign_kvstore(dev, by_path: dict) -> None:
+    """kv-store: kvstore-demo at its full config (a 2**20-key float32
+    value table and head), keys (2, 32) from a seeded generator."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import lm_eval_fn, tree
+    from repro_torch.models import forward, init_params
+    cfg = get_config("kvstore-demo")
+    params = init_params(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    keys = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen,
+                         device=dev)
+    ev = lm_eval_fn(cfg, {"tokens": keys}, forward)
+    print(f"campaign_kvstore: kvstore-demo vocab={cfg.vocab_size} d_model="
+          f"{cfg.d_model} params={sum(t.numel() for t in tree.leaves(params))} "
+          f"({cfg.param_dtype}, compute {cfg.compute_dtype}) keys=2x32")
+    _campaign("campaign_kvstore", ev, params, KV_TRIALS, {"bitflip"},
+              by_path)
+
+
+def campaign_graph(g, dense, by_path: dict) -> None:
+    """Graph mining: the scale-22 dense state under ``HRMPolicy(
+    "campaign/graph", {})``, the query the top-8 of 12 PageRank
+    iterations."""
+    from repro_torch.core import HRMPolicy, MemoryDomain
+    from repro_torch.graph import pagerank_eval_fn
+    dom = MemoryDomain.protect({"graph": dense},
+                               HRMPolicy("campaign/graph", {}))
+    ev = pagerank_eval_fn(g.n, iters=GRAPH_CAMPAIGN_ITERS)
+    print(f"campaign_graph: nodes={g.n} edges={g.n_edges} query=top-8 of "
+          f"pagerank_eval_fn(iters={GRAPH_CAMPAIGN_ITERS})")
+    _campaign("campaign_graph", ev, dom, GRAPH_TRIALS,
+              {"bitflip", "segsum_push"}, by_path)
+
+
+def run_explore(by_path: dict) -> None:
+    """``python -m repro_torch.launch.explore --workload all --design all
+    --measure`` at the reference's default sizes, in this process so its
+    launches are counted on their own; the measured ECC rates' cache is
+    cleared first, so the explorer measures them through the kernels."""
+    from repro_torch.core import eccmeasure
+    from repro_torch.kernels import _build
+    from repro_torch.launch import explore
+    eccmeasure._class_rates.cache_clear()
+    _build.reset_launches()
+    rc, ms = _timed(lambda: explore.main(
+        ["--workload", "all", "--design", "all", "--measure"]))
+    _path_launches("explore", {
+        "bitflip", "parity_encode", "parity_check", "bch_encode",
+        "bch_scrub", "burst_encode", "burst_scrub", "segsum_push",
+        "frontier_update"}, by_path)
+    if rc:
+        raise AssertionError(f"explore exited {rc}")
+    print(f"explore --workload all --design all --measure: wall_s="
+          f"{ms / 1e3:.3f}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1615,7 +1882,11 @@ def main() -> int:
                       *graph))
     phase("6_graph_paths", run_graph_paths, *graph, by_path)
     times.update(phase("6_graph_times", time_graph, *graph))
+    phase("7_campaign_lm", campaign_lm, state["params"], by_path)
+    phase("7_campaign_kvstore", campaign_kvstore, dev, by_path)
+    phase("7_campaign_graph", campaign_graph, *graph[:2], by_path)
     del graph
+    phase("7_explore", run_explore, by_path)
     print(f"phase_s={json.dumps(phase_s)}")
     print(f"peak_memory_bytes_run={torch.cuda.max_memory_allocated()}")
     print(f"wall_s={time.perf_counter() - t0:.1f}")

@@ -1,4 +1,5 @@
-"""Model configuration for the port: a copy of ``repro.configs.base.ModelConfig``.
+"""Model configuration for the port: copies of ``repro.configs.base``'s
+``ModelConfig`` and ``ShapeSpec``.
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 The sub-configurations of the other families (MoE, Mamba2, xLSTM) come
@@ -48,3 +49,13 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned workload shape (applies per architecture)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode

@@ -11,6 +11,7 @@ from repro_torch.configs.base import ModelConfig
 # arch id -> module name under repro_torch.configs
 _MODULES: Dict[str, str] = {
     "llama3-8b": "llama3_8b",
+    "kvstore-demo": "kvstore_demo",       # Memcached-analogue workload
 }
 
 

@@ -8,7 +8,8 @@ It lands in ``build/repro_torch/`` at the repository root.
 
 Each C entry point takes device pointers, sizes and a CUDA stream, launches
 on that stream, and returns ``cudaGetLastError()``. ``launch`` raises when
-that is nonzero and counts every launch by kernel name in ``LAUNCHES``.
+that is nonzero and counts every launch by kernel name in ``LAUNCHES``. A
+failed build or launch raises ``KernelError``.
 """
 from __future__ import annotations
 
@@ -56,6 +57,13 @@ _SIGNATURES = {
     "hrm_frontier_update": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
 }
 
+
+
+class KernelError(RuntimeError):
+    """The kernels could not be built, loaded or launched: a fault of the
+    program or the machine, never an outcome of the data."""
+
+
 # kernel name -> launches in this process
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "secded_encode", "secded_scrub", "parity_encode", "parity_check",
@@ -71,7 +79,7 @@ def reset_launches() -> None:
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not Path(nvcc).exists():
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        raise KernelError("nvcc not found: the CUDA kernels cannot be built")
     return nvcc
 
 
@@ -105,7 +113,7 @@ def build() -> Path:
             out, _ = p.communicate()
             log.append(f"== nvcc {name}\n{out}")
             if p.returncode:
-                raise RuntimeError(f"nvcc failed on {name}:\n{out}")
+                raise KernelError(f"nvcc failed on {name}:\n{out}")
         out_so = tmp / lib.name
         link = subprocess.run(
             [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(out_so),
@@ -113,7 +121,7 @@ def build() -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         log.append(f"== link\n{link.stdout}")
         if link.returncode:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+            raise KernelError(f"nvcc link failed:\n{link.stdout}")
         lib.with_suffix(".log").write_text("".join(log))
         out_so.replace(lib)          # atomic: readers never see a partial file
     finally:
@@ -134,7 +142,7 @@ def library() -> ctypes.CDLL:
     action = hsiao.SYNDROME_ACTION.astype(np.int8)   # -2, -1, 0..71 all fit
     rc = lib.hrm_secded_set_tables(masks.ctypes.data, action.ctypes.data)
     if rc:
-        raise RuntimeError(f"copying the SEC-DED tables failed: CUDA error {rc}")
+        raise KernelError(f"copying the SEC-DED tables failed: CUDA error {rc}")
     return lib
 
 
@@ -158,7 +166,7 @@ def launch(kernel: str, *args) -> None:
     fn = getattr(library(), "hrm_" + kernel)
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"{kernel} kernel launch failed: CUDA error {rc}")
     LAUNCHES[kernel] += 1
 
 

@@ -1,0 +1,64 @@
+"""Grouped-query attention, full sequence (prefill).
+
+Counterpart of ``repro.models.attention``: Q, K and V are projected in the
+compute dtype and rotated by RoPE; the scores are the compute-dtype product
+cast to float32 afterwards (the reference's rounding), scaled by
+``1/sqrt(dh)``, causally masked with ``-inf`` and softmaxed in float32,
+then cast to V's dtype for the weighted sum and the output projection.
+``cfg.shard_hints`` is a GSPMD layout hint in the reference and is ignored
+here. ``attn_decode`` waits for the serving slice (ROADMAP.md, queue 1,
+item 7).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import apply_rope, dtype_of
+
+
+def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """x: (B,S,D) -> q (B,S,K,G,dh), k,v (B,S,K,dh)."""
+    B, S, _ = x.shape
+    dh, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    G = H // K
+    cdt = dtype_of(cfg.compute_dtype)
+    xc = x.to(cdt)
+    q = xc @ p["wq"].to(cdt)
+    k = xc @ p["wk"].to(cdt)
+    v = xc @ p["wv"].to(cdt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cdt)
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+    q = q.reshape(B, S, H, dh)
+    k = k.reshape(B, S, K, dh)
+    v = v.reshape(B, S, K, dh)
+    if cfg.family != "audio":           # audio stub frontend carries its own pos
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q.reshape(B, S, K, G, dh), k, v
+
+
+def attn_apply(p, x: torch.Tensor, cfg: ModelConfig,
+               positions: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full self-attention. x: (B,S,D); positions: (S,) or (B,S).
+    Returns (y (B,S,D), (k, v))."""
+    B, S, D = x.shape
+    dh, H = cfg.head_dim, cfg.n_heads
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).to(torch.float32)
+    scores = scores / math.sqrt(dh)
+    if cfg.causal:
+        i = torch.arange(S, device=x.device)
+        scores = scores.masked_fill(i[:, None] < i[None, :], -math.inf)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, v).reshape(B, S, H * dh)
+    return o @ p["wo"].to(o.dtype), (k, v)

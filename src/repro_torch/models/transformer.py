@@ -1,15 +1,20 @@
-"""Model state of the port: ``init_params`` and ``init_cache``, dense family.
+"""The port's transformer, dense family: ``init_params``, ``init_cache``
+and ``forward``.
 
-Counterpart of ``repro.models.transformer.init_params``/``init_cache``:
-the same tree, key paths, shapes and dtypes, with per-layer weights stacked
-on a leading layer axis. Values come from a ``torch.Generator`` seeded with
-``seed``: truncated normal on [-2, 2] times the reference's scales (fan-in
-for projections, 0.02 for the embedding, depth-scaled output projections).
-They cannot equal ``jax.random``'s draws; tests that compare the two
-packages carry the reference's state across with ``convert``.
+Counterpart of ``repro.models.transformer``: the same tree, key paths,
+shapes and dtypes, with per-layer weights stacked on a leading layer axis.
+Values come from a ``torch.Generator`` seeded with ``seed``: truncated
+normal on [-2, 2] times the reference's scales (fan-in for projections,
+0.02 for the embedding, depth-scaled output projections). They cannot
+equal ``jax.random``'s draws; tests that compare the two packages carry
+the reference's state across with ``convert``.
 
-The forward pass waits for its slice of the port (ROADMAP.md, queue 1,
-item 6).
+``forward`` is the reference's full-sequence forward for the dense family
+and the token frontend: the reference's ``lax.scan`` over the stacked
+layer axis becomes a Python loop over layer slices (views, no copies).
+``loss_fn`` and ``decode_step`` wait for the training and serving slice
+(ROADMAP.md, queue 1, item 7); the other families and frontends for item
+12.
 """
 from __future__ import annotations
 
@@ -20,25 +25,23 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import attn_apply
+from repro_torch.models.common import dtype_of, rmsnorm
+from repro_torch.models.mlp import mlp_apply
 
 Params = Dict[str, Any]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
 # the standard normal's CDF at the truncation bounds -2 and 2
 _CDF_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
 _CDF_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
 
 
-def dtype_of(name: str) -> torch.dtype:
-    return _DTYPES[name]
-
-
 def _dense_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family != "dense" or cfg.frontend != "none":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1, "
-            "item 12); the port runs the dense family")
+            f"family {cfg.family!r} with frontend {cfg.frontend!r} is not "
+            "ported yet (ROADMAP.md, queue 1, item 12); the port runs the "
+            "dense family on tokens")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
@@ -98,3 +101,49 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     cdt = dtype_of(cfg.compute_dtype)
     return {"k": torch.zeros(shape, dtype=cdt, device=dev),
             "v": torch.zeros(shape, dtype=cdt, device=dev)}
+
+
+# ================================================================ forward
+def _embed_inputs(p: Params, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig) -> torch.Tensor:
+    """The token embeddings (B,S,D) in the compute dtype."""
+    return p["embed"][batch["tokens"]].to(dtype_of(cfg.compute_dtype))
+
+
+def _head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    w = p["embed"].T if cfg.tie_embeddings else p["head"]
+    return x @ w.to(dtype_of(cfg.compute_dtype))
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of the stacked per-layer weights (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def forward(p: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            return_cache: bool = False):
+    """Full-sequence forward. Returns (logits, aux_loss, cache|None); the
+    cache is ``{"k", "v"}`` of shape (L,B,S,K,dh)."""
+    _dense_family(cfg)
+    x = _embed_inputs(p, batch, cfg)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        layer = _layer(p["blocks"], i)
+        h, (k, v) = attn_apply(
+            layer["attn"], rmsnorm(x, layer["norm1"], cfg.norm_eps), cfg,
+            positions)
+        x = x + h
+        x = x + mlp_apply(
+            layer["mlp"], rmsnorm(x, layer["norm2"], cfg.norm_eps), cfg)
+        if return_cache:
+            ks.append(k)
+            vs.append(v)
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} \
+        if return_cache else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(p, x, cfg), aux, cache

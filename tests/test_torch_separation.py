@@ -14,7 +14,9 @@ import torch
 
 from repro_torch.configs import get_tiny
 from repro_torch.convert import state_from_numpy
+from repro_torch.data.synthetic import lm_batch
 from repro_torch.graph import graph_state, powerlaw_graph
+from repro_torch.launch import explore
 from repro_torch.models import init_cache, init_params
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -57,6 +59,26 @@ def test_graph_import_loads_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
 
 
+def test_campaign_slice_loads_no_jax_and_no_reference():
+    """The campaign slice alone: the model forward, the synthetic data, the
+    campaign, the auto-tuner and the explorer pull in only torch, numpy and
+    the port."""
+    code = textwrap.dedent("""
+        import sys
+        import repro_torch.models, repro_torch.data.synthetic
+        import repro_torch.core.characterize, repro_torch.core.autopolicy
+        import repro_torch.launch.explore
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        assert "repro_torch.models.attention" in sys.modules
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_entry_points_need_a_device_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
@@ -67,6 +89,10 @@ def test_entry_points_need_a_device_without_a_card():
         init_cache(cfg, 1, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         state_from_numpy({"w": np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_batch(cfg, 1, 4, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        explore.main(["--dry-run"])
     g = powerlaw_graph(64, seed=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         graph_state(g)
