@@ -67,7 +67,30 @@ Needs one CUDA card (an H100: the kernels build for ``sm_90a``) and
    prints its Fig. 3 and Fig. 4 rows, trials per second and ms per trial
    split into strike (pack, flip, unpack), query and classify. Then
    ``python -m repro_torch.launch.explore --workload all --design all
-   --measure`` runs in this process, its ECC rates measured anew.
+   --measure`` runs in this process, its ECC rates measured anew. Then the
+   trace engine: ``core.tracegen`` writes one server-month, and
+   ``run_trace_campaign`` replays it twice on the full kvstore-demo, with
+   equal outcomes; ``explore --workload all --trace`` prints the same text
+   on the card as on the CPU; and the tiny kv-store's measured explorer
+   rows on the card are set beside the CPU's (the first trial whose
+   outcome differs is named, not failed: the two devices round the bf16
+   forward differently);
+8. serving at llama3-8b's full width (phase 3's 8-layer parameters):
+   ``serve_batch`` over 8 prompts of 512 tokens, 128 new tokens, with no
+   policy and under ``typical_server``, ``detect_recover`` and
+   ``detect_recover_l`` (scrub every 16 tokens, 0.5 strikes a token, seed
+   9), each also at error rate 0, where every policy's tokens must equal
+   the unprotected run's; the first 16 decode positions' logits held
+   against a ``forward`` over prompt and generated tokens; ``injected``
+   equal to the strikes the loop's stream draws; under ``typical_server``
+   every single-bit strike before the last scrub corrected and every
+   double detected. Prints prefill ms, the median ms per decoded token,
+   tokens/s, the scrub and inject ms inside the loop and peak memory,
+   and splits one decode step's time under ``torch.profiler``.
+
+Phase 3c holds the port's random draws (tiny llama3-8b and kvstore-demo
+parameters, the kv-store's query keys) made on the card equal to those
+made on the CPU, bit for bit.
 
 Its last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels as JSON: ``launches`` sums the main paths' counts, which
@@ -135,6 +158,18 @@ HARD_REPEAT = 3                # queries of a hard trial
 GRAPH_CAMPAIGN_ITERS = 12
 DETERMINISM_RERUNS = 3
 PLAIN_FLIP_TRIALS = 16
+TRACE_SEED = 0                 # tracegen's seed for the server-month
+EXPLORE_KV_TRIALS = 20         # the explorer's --measure default
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 512, 128
+SERVE_POLICIES = (None, "typical_server", "detect_recover",
+                  "detect_recover_l")
+# examples/serve_kv.py's error rate and seed, its scrub interval scaled to
+# the longer run
+SERVE_SCRUB_INTERVAL, SERVE_ERROR_RATE, SERVE_SEED = 16, 0.5, 9
+SERVE_KERNELS = {"secded_encode", "secded_scrub", "parity_encode",
+                 "parity_check", "bitflip"}
+LOGIT_CHECK_TOKENS = 16
+DECODE_PROFILE_STEPS = 8
 # push results are held to the plain version's at rtol + ATOL_REL x max|y|:
 # both sum in float64 and round once, but the kernels' atomics add in an
 # order that changes from run to run, which can move a rounding by one ulp
@@ -459,6 +494,29 @@ def model_state(dev):
           f"layers={cfg.n_layers} params={n_params} ({cfg.param_dtype}) "
           f"kv_cache={KV_BATCH}x{KV_SEQ}")
     return state
+
+
+def check_draws(dev) -> None:
+    """Phase 3c: tiny llama3-8b and kvstore-demo parameters and the
+    kv-store's query keys made on the card equal those made on the CPU, bit
+    for bit."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.core import tree
+    from repro_torch.launch.explore import _kvstore_state
+    unequal = total = 0
+    for arch in ("llama3-8b", "kvstore-demo"):
+        cfg = get_tiny(arch)
+        card, cpu = ([*tree.leaves(params), keys] for params, keys in (
+            _kvstore_state(cfg, SEED, dev), _kvstore_state(cfg, SEED, "cpu")))
+        for a, b in zip(card, cpu):
+            a = a.cpu().reshape(a.numel(), -1).view(torch.uint8)
+            b = b.reshape(b.numel(), -1).view(torch.uint8)
+            unequal += int((a != b).any(dim=1).sum())
+            total += a.shape[0]
+    print(f"draws: unequal_elements={unequal} of {total} (tiny llama3-8b "
+          f"and kvstore-demo parameters and kv-store keys, card vs cpu)")
+    if unequal:
+        raise AssertionError("the card's draws differ from the CPU's")
 
 
 def _check_restored(dom, original, events, report):
@@ -1552,7 +1610,11 @@ def time_graph(g, dense, blocked):
     out["frontier_update"] = {
         "ms": _cuda_ms(lambda: frontier_update(*args), reps=50),
         "plain_ms": _cuda_ms(lambda: ref.frontier_update_ref(*args), reps=10),
-        "library_ms": None, "bytes": n_pad * 24, "ops": n_pad}
+        "library_ms": None, "bytes": n_pad * 24, "ops": n_pad,
+        # a call's time is host-bound: beside it the kernel's own time,
+        # from launches replayed in a CUDA graph (as the bit-flip kernel's)
+        "device_ms": _graph_ms(lambda: frontier_update(*args),
+                               BITFLIP_GRAPH_LAUNCHES)}
     for name, rec in out.items():
         rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
         rec["bound_by"] = "bytes"
@@ -1562,7 +1624,11 @@ def time_graph(g, dense, blocked):
               f"{rec['plain_ms']:.3f} library_ms="
               f"{'null' if lib is None else f'{lib:.4f}'} bound_ms="
               f"{rec['bound_ms']:.4f} (bytes={rec['bytes']}) ops="
-              f"{rec['ops']} of_bound={rec['bound_ms'] / rec['ms']:.3f}")
+              f"{rec['ops']} of_bound={rec['bound_ms'] / rec['ms']:.3f}"
+              + (f" device_ms={rec['device_ms']:.5f} (CUDA graph of "
+                 f"{BITFLIP_GRAPH_LAUNCHES} launches) of_bound_device="
+                 f"{rec['bound_ms'] / rec['device_ms']:.3f}"
+                 if "device_ms" in rec else ""))
     # BENCH_graph_scale.json's quantities, warm, on the card
     n = g.n
     per_iter = {}
@@ -1842,6 +1908,357 @@ def run_explore(by_path: dict) -> None:
           f"{ms / 1e3:.3f}")
 
 
+# ------------------------------------------------------- 7. trace engine
+def _stdout_of(fn, *args) -> str:
+    """What ``fn(*args)`` prints; it must return 0."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    if rc:
+        raise AssertionError(f"{fn.__module__}.{fn.__name__} exited {rc}")
+    return buf.getvalue()
+
+
+def run_trace(dev, by_path: dict) -> None:
+    """``core.tracegen`` writes one server-month (540 events); the Fig. 2
+    campaign replays it on the full kvstore-demo (keys (2, 32)) twice, its
+    first run's launches counted on their own, and both runs must classify
+    every event alike; then ``explore --workload all --trace`` on the card
+    must print what the same call prints with ``--device cpu``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ErrorTrace, characterize, lm_eval_fn,
+                                  tracegen)
+    from repro_torch.kernels import _build
+    from repro_torch.launch import explore
+    from repro_torch.models import forward
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "month.npz"
+    print("tracegen: " + _stdout_of(tracegen.main, [
+        "--out", str(path), "--seed", str(TRACE_SEED)]).strip().replace(
+        "\n", "; "))
+    trace = ErrorTrace.load(path)
+    cfg = get_config("kvstore-demo")
+    params, keys = explore._kvstore_state(cfg, SEED, dev)
+    ev = lm_eval_fn(cfg, {"tokens": keys}, forward)
+    _build.reset_launches()
+    first, ms = _timed(lambda: characterize.run_trace_campaign(
+        ev, params, trace, hard_repeat=HARD_REPEAT))
+    _path_launches("trace_campaign", {"bitflip"}, by_path)
+    again = characterize.run_trace_campaign(ev, params, trace,
+                                            hard_repeat=HARD_REPEAT)
+    if first.trials != again.trials or len(first.trials) != len(trace):
+        raise AssertionError("two replays of one trace classified "
+                             "differently")
+    counts = {o.value: sum(t[2] is o for t in first.trials)
+              for o in characterize.Outcome}
+    print(f"trace_campaign kvstore-demo: events={len(trace)} (hard "
+          f"{int(trace.hard.sum())}, multi-bit {int((trace.burst > 1).sum())})"
+          f" wall_s={ms / 1e3:.3f} trials_per_s={len(trace) / ms * 1e3:.2f} "
+          f"outcomes={json.dumps(counts)} replayed twice: identical")
+    _print_figs("trace_campaign", first)
+    argv = ["--workload", "all", "--design", "all", "--trace", str(path)]
+    card = _stdout_of(explore.main, argv)
+    cpu = _stdout_of(explore.main, argv + ["--device", "cpu"])
+    if card != cpu:
+        raise AssertionError("explore --trace: the card's rows differ from "
+                             "the CPU's")
+    print(f"explore --workload all --trace: {card.count('ecc_src=trace')} "
+          f"trace tables, {len(card.splitlines())} lines, card == cpu")
+
+
+def kvstore_card_vs_cpu(dev) -> None:
+    """The explorer's measured kv-store rows (``--workload kvstore
+    --measure``) on the card beside the CPU's, now that both draw the same
+    parameters and keys. Where the two campaigns' outcomes differ, prints
+    the first differing trial and whether the bf16 forward's golden and
+    struck tokens differ there; a difference is reported, not failed."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.core import characterize, lm_eval_fn
+    from repro_torch.launch import explore
+    from repro_torch.models import forward
+    argv = ["--workload", "kvstore", "--design", "all", "--measure"]
+    card = _stdout_of(explore.main, argv)
+    cpu = _stdout_of(explore.main, argv + ["--device", "cpu"])
+    row = {}
+    for name, text in (("card", card), ("cpu", cpu)):
+        row[name] = next(line for line in text.splitlines()
+                         if line.startswith("consumer_pc"))
+        print(f"explore kvstore --measure {name}: {row[name]}")
+    cfg = get_tiny("kvstore-demo")
+    runs = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        params, keys = explore._kvstore_state(cfg, SEED, d)
+        ev = lm_eval_fn(cfg, {"tokens": keys}, forward)
+        res = characterize.run_campaign(ev, params,
+                                        n_trials=EXPLORE_KV_TRIALS, seed=SEED)
+        runs[name] = (params, ev, res)
+    diff = [i for i, (a, b) in enumerate(zip(runs["card"][2].trials,
+                                               runs["cpu"][2].trials))
+            if a != b]
+    line = (f"kvstore campaign card vs cpu: rows equal: {card == cpu}; "
+            f"trials differing: {len(diff)} of "
+            f"{len(runs['cpu'][2].trials)}")
+    if diff:
+        i = diff[0]
+        dom, _, _ = characterize._campaign_domain(runs["cpu"][0], "params")
+        kind, s, plan = list(characterize._campaign_strikes(
+            dom, n_trials=EXPLORE_KV_TRIALS, errors_per_trial=1, seed=SEED,
+            kinds=("soft", "hard"), region_filter=None))[i]
+        toks = {}
+        for name, (params, ev, _) in runs.items():
+            d, _, _ = characterize._campaign_domain(params, "params")
+            toks[name] = (ev(params)[0].cpu(),
+                          ev(d.apply_plan(s.path, plan).payload)[0].cpu())
+        golden_same = torch.equal(toks["card"][0], toks["cpu"][0])
+        struck_same = torch.equal(toks["card"][1], toks["cpu"][1])
+        line += (f"; first: trial {i} ({kind}, {s.path}) card "
+                 f"{runs['card'][2].trials[i][2].value} cpu "
+                 f"{runs['cpu'][2].trials[i][2].value}; golden tokens equal:"
+                 f" {golden_same}; struck tokens equal: {struck_same}")
+    print(line)
+
+
+# ------------------------------------------------------------ 8. serving
+def _serve_strikes(spec, policy, n_tokens: int, rate: float, seed: int):
+    """The serve loop's strikes, drawn again from its stream: one uniform a
+    token, then ``MemoryDomain.inject``'s draws. Returns [(token, leaf,
+    plan)]."""
+    from repro_torch.core import InjectionPlan
+    em = policy.error_model
+    rng = np.random.default_rng(seed + 1)
+    out = []
+    for t in range(n_tokens):
+        if rate > 0 and rng.random() < rate:
+            s = spec.protectable[rng.choice(len(spec.protectable),
+                                            p=spec._byte_weights)]
+            out.append((t, s, InjectionPlan.sample(
+                rng, s.rows * 256, 1, False, em.multi_bit_fraction,
+                em.adjacent_fraction)))
+    return out
+
+
+def _secded_expected(strikes, last_scrub: int):
+    """(single-bit, double-bit) struck words that a SEC-DED scrub at or
+    after ``last_scrub`` must correct and flag: the bits that landed in the
+    leaves' bytes (a pad bit is lost on unpacking), counted per word."""
+    words = {}
+    for t, s, plan in strikes:
+        if t > last_scrub:
+            continue
+        for w, b in zip(plan.word_idx.tolist(), plan.bit_idx.tolist()):
+            if w >= 0 and w * 64 + b < s.nbytes * 8:
+                words[(s.path, w)] = words.get((s.path, w), 0) + 1
+    return (sum(n == 1 for n in words.values()),
+            sum(n == 2 for n in words.values()))
+
+
+class _ServeTimer:
+    """Wraps what ``serve_batch`` calls (prefill, each decode step,
+    ``MemoryDomain.inject`` and ``scrub``) with device-synchronised wall
+    times, for the length of a ``with`` block."""
+
+    def __init__(self):
+        self.ms = {"prefill": [], "token": [], "inject": [], "scrub": []}
+        self.spec = None
+
+    def _wrap(self, key, fn):
+        def timed(*a, **k):
+            if key == "inject":
+                self.spec = a[0].spec
+            out, ms = _timed(lambda: fn(*a, **k))
+            self.ms[key].append(ms)
+            return out
+        return timed
+
+    def __enter__(self):
+        from repro_torch.core import MemoryDomain
+        from repro_torch.runtime import serve_loop
+        self._saved = (serve_loop.make_prefill_step,
+                       serve_loop.make_serve_step, MemoryDomain.inject,
+                       MemoryDomain.scrub)
+        pre, step, inject, scrub = self._saved
+        serve_loop.make_prefill_step = \
+            lambda cfg: self._wrap("prefill", pre(cfg))
+        serve_loop.make_serve_step = \
+            lambda cfg: self._wrap("token", step(cfg))
+        MemoryDomain.inject = self._wrap("inject", inject)
+        MemoryDomain.scrub = self._wrap("scrub", scrub)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import MemoryDomain
+        from repro_torch.runtime import serve_loop
+        (serve_loop.make_prefill_step, serve_loop.make_serve_step,
+         MemoryDomain.inject, MemoryDomain.scrub) = self._saved
+
+
+def _prefilled(cfg, params, prompts, new_tokens: int):
+    """The prefill's greedy token and its cache, padded for ``new_tokens``
+    decode steps, as ``serve_batch`` starts its loop."""
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.steps import make_prefill_step
+    S0 = prompts.shape[1]
+    last, cache = make_prefill_step(cfg)(params, {"tokens": prompts})
+    full = init_cache(cfg, prompts.shape[0], S0 + new_tokens,
+                      device=prompts.device)
+    for k, dst in full.items():
+        dst[:, :, :S0] = cache[k]
+    return torch.argmax(last, dim=-1), full
+
+
+def _check_decode_logits(cfg, params, prompts) -> None:
+    """The first LOGIT_CHECK_TOKENS decode positions against a teacher-
+    forced ``forward`` over the prompt and the generated tokens: prints the
+    max |diff| of the logits; the greedy tokens must agree wherever the
+    forward's top-2 margin exceeds it."""
+    from repro_torch.models import decode_step, forward
+    S0 = prompts.shape[1]
+    token, full = _prefilled(cfg, params, prompts, LOGIT_CHECK_TOKENS)
+    gen, dec = [], []
+    for t in range(LOGIT_CHECK_TOKENS):
+        gen.append(token)
+        lg, full = decode_step(params, token, S0 + t, full, cfg)
+        dec.append(lg.float())
+        token = torch.argmax(lg, dim=-1)
+    seq = torch.cat([prompts, torch.stack(gen, dim=1)], dim=1)
+    ref = forward(params, {"tokens": seq}, cfg)[0][:, S0:].float()
+    dec = torch.stack(dec, dim=1)
+    diff = float((dec - ref).abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > diff
+    agree = bool((dec.argmax(-1) == ref.argmax(-1))[clear].all())
+    print(f"serve decode vs forward ({LOGIT_CHECK_TOKENS} positions x "
+          f"{prompts.shape[0]}): max|diff|={diff:.4g} max|logit|="
+          f"{float(ref.abs().max()):.4g} positions with top-2 margin above "
+          f"it: {int(clear.sum())} of {clear.numel()}, tokens equal there: "
+          f"{agree}")
+    if not agree:
+        raise AssertionError("decode and forward disagree on a clear token")
+
+
+def profile_decode(cfg, params, prompts) -> None:
+    """Where a decode step's time goes: DECODE_PROFILE_STEPS warm steps
+    (unprotected parameters) under ``torch.profiler``: wall and device-busy
+    ms a step, the device's idle share, kernels launched a step, and
+    device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step
+    S0, n = prompts.shape[1], DECODE_PROFILE_STEPS
+    token, full = _prefilled(cfg, params, prompts, n + 1)
+    lg, full = decode_step(params, token, S0, full, cfg)       # warm
+    token = torch.argmax(lg, dim=-1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _sync()
+        t = time.perf_counter()
+        for i in range(n):
+            lg, full = decode_step(params, token, S0 + 1 + i, full, cfg)
+            token = torch.argmax(lg, dim=-1)
+        _sync()
+        wall_ms = (time.perf_counter() - t) * 1e3 / n
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+    kernels = sum(e.count for e in events) / n
+    print(f"profile decode step (batch {prompts.shape[0]}, {n} steps): "
+          f"wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
+          f"idle_share={1 - busy_ms / wall_ms:.3f} device_ops_per_step="
+          f"{kernels:.0f}")
+    for e in sorted(events, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:6]:
+        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms "
+              f"x{e.count // n:<4d} {e.key[:90]}")
+
+
+def run_serve(params, dev, by_path: dict) -> None:
+    """Phase 8: ``serve_batch`` at llama3-8b's full width (N_LAYERS layers)
+    under SERVE_POLICIES, each at error rate 0 and SERVE_ERROR_RATE, the
+    latter twice: once for wall time and once split by ``_ServeTimer``.
+    Every run's launches count into the ``serve`` path."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import DESIGN_POINTS, HRMPolicy
+    from repro_torch.draws import Stream
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.serve_loop import serve_batch
+    cfg = get_config("llama3-8b").replace(n_layers=N_LAYERS)
+    prompts = Stream(SEED + 1, dev).randint(cfg.vocab_size,
+                                            (SERVE_BATCH, SERVE_PROMPT))
+    print(f"serve: llama3-8b layers={cfg.n_layers} batch={SERVE_BATCH} "
+          f"prompt={SERVE_PROMPT} new_tokens={SERVE_NEW} scrub_interval="
+          f"{SERVE_SCRUB_INTERVAL} error_rate={SERVE_ERROR_RATE} seed="
+          f"{SERVE_SEED} compute={cfg.compute_dtype}")
+    _check_decode_logits(cfg, params, prompts)
+    profile_decode(cfg, params, prompts)
+    _build.reset_launches()
+    base = None
+    n_tok = SERVE_BATCH * SERVE_NEW
+    last_scrub = (SERVE_NEW - 1) // SERVE_SCRUB_INTERVAL \
+        * SERVE_SCRUB_INTERVAL
+    for name in SERVE_POLICIES:
+        policy = None if name is None else dataclasses.replace(
+            DESIGN_POINTS[name](), scrub_interval=SERVE_SCRUB_INTERVAL)
+
+        def run(rate, policy=policy):
+            return serve_batch(cfg, params, prompts, SERVE_NEW,
+                               policy=policy, error_rate_per_token=rate,
+                               seed=SERVE_SEED)
+        (clean, _), clean_ms = _timed(lambda: run(0.0))
+        if base is None:
+            base = clean
+        elif not torch.equal(clean, base):
+            raise AssertionError(f"serve {name}: error rate 0 gave other "
+                                 "tokens than the unprotected run")
+        torch.cuda.reset_peak_memory_stats()
+        (toks, rep), wall_ms = _timed(lambda: run(SERVE_ERROR_RATE))
+        peak = torch.cuda.max_memory_allocated()
+        with _ServeTimer() as timer:
+            toks2, rep2 = run(SERVE_ERROR_RATE)
+        if not torch.equal(toks, toks2) or rep != rep2:
+            raise AssertionError(f"serve {name}: two runs of one seed "
+                                 "differ")
+        strikes = _serve_strikes(
+            timer.spec, policy or HRMPolicy("unprotected", {}), SERVE_NEW,
+            SERVE_ERROR_RATE, SERVE_SEED)
+        if rep.injected != len(strikes) or not strikes:
+            raise AssertionError(f"serve {name}: injected {rep.injected}, "
+                                 f"the stream draws {len(strikes)}")
+        expect = ""
+        if name == "typical_server":
+            single, double = _secded_expected(strikes, last_scrub)
+            if (rep.scrub_corrected, rep.scrub_detected) != (single, double):
+                raise AssertionError(
+                    f"serve typical_server: corrected {rep.scrub_corrected}"
+                    f" detected {rep.scrub_detected}, strikes before the "
+                    f"last scrub: {single} single-bit, {double} double-bit "
+                    "words")
+            expect = (f" (expected: {single} single-bit, {double} double-bit"
+                      f" words struck by step {last_scrub})")
+        ms = timer.ms
+        tok = sorted(ms["token"])
+        print(f"serve {name or 'none'}: prefill_ms={ms['prefill'][0]:.2f} "
+              f"ms_per_token_median={tok[len(tok) // 2]:.3f} "
+              f"(min {tok[0]:.3f} max {tok[-1]:.3f}) tokens_per_s="
+              f"{n_tok / wall_ms * 1e3:.1f} (wall_ms={wall_ms:.1f}, prefill "
+              f"and protect included; error rate 0: "
+              f"{n_tok / clean_ms * 1e3:.1f}) decode_tokens_per_s="
+              f"{SERVE_BATCH / tok[len(tok) // 2] * 1e3:.1f} "
+              f"scrubs={len(ms['scrub'])} scrub_ms_mean="
+              f"{np.mean(ms['scrub'] or [0]):.2f} injects="
+              f"{len(ms['inject'])} inject_ms_mean="
+              f"{np.mean(ms['inject'] or [0]):.3f} injected={rep.injected} "
+              f"corrected={rep.scrub_corrected} detected="
+              f"{rep.scrub_detected}{expect} sidecar_overhead="
+              f"{rep.sidecar_overhead:.4f} peak_bytes={peak} tokens_equal_"
+              f"clean={bool(torch.equal(toks, base))}")
+    _path_launches("serve", SERVE_KERNELS, by_path)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1871,6 +2288,7 @@ def main() -> int:
     checks.update(phase("2_check_strong", check_strong_kernels, dev))
     phase("2_sweeps", conformance_sweeps, dev)
     state = phase("3_model", model_state, dev)
+    phase("3c_draws", check_draws, dev)
     by_path = phase("3_main_path", run_main_path, state)
     full = phase("3b_main_shapes", check_main_shapes, state, dev)
     phase("3b_profile", profile_scrub, state)
@@ -1887,6 +2305,9 @@ def main() -> int:
     phase("7_campaign_graph", campaign_graph, *graph[:2], by_path)
     del graph
     phase("7_explore", run_explore, by_path)
+    phase("7_trace", run_trace, dev, by_path)
+    phase("7_kvstore_card_vs_cpu", kvstore_card_vs_cpu, dev)
+    phase("8_serve", run_serve, state["params"], dev, by_path)
     print(f"phase_s={json.dumps(phase_s)}")
     print(f"peak_memory_bytes_run={torch.cuda.max_memory_allocated()}")
     print(f"wall_s={time.perf_counter() - t0:.1f}")

@@ -2,16 +2,19 @@
 the ``MemoryDomain`` verbs, measured per-tier ECC outcome rates
 (``eccmeasure``), the Fig. 5 cost and availability models
 (``costmodel``/``availability``), the Fig. 2 campaign (``taxonomy``,
-``characterize``) and the policy auto-tuner (``autopolicy``)."""
+``characterize``), the policy auto-tuner (``autopolicy``) and the error
+trace engine (``trace``, ``tracegen``)."""
 from repro_torch.core.autopolicy import (  # noqa: F401
     AutoPolicyResult, tune_policy, tune_policy_for_domain, vuln_from_campaign,
 )
 from repro_torch.core.availability import (  # noqa: F401
     PEER_COPY_SECONDS, RECOVERY_SECONDS, WEBSEARCH_VULN, AvailabilityResult,
     VulnProfile, evaluate_availability, paper_design_availability,
+    replay_availability,
 )
 from repro_torch.core.characterize import (  # noqa: F401
     CampaignResult, classify_trial, lm_eval_fn, run_campaign,
+    run_trace_campaign,
 )
 from repro_torch.core.costmodel import (  # noqa: F401
     WEBSEARCH, DesignPointCost, RegionProfile, paper_design_costs,
@@ -36,3 +39,9 @@ from repro_torch.core.recovery import (  # noqa: F401
 from repro_torch.core.sidecar import ScrubReport  # noqa: F401
 from repro_torch.core.tiers import Tier  # noqa: F401
 from repro_torch.core.taxonomy import Outcome, OutcomeStats  # noqa: F401
+from repro_torch.core.trace import (  # noqa: F401
+    BoundStrike, ErrorTrace, TraceReplayer, bind_trace,
+)
+from repro_torch.core.tracegen import (  # noqa: F401
+    TraceGenConfig, generate_error_trace,
+)

@@ -29,8 +29,8 @@ Errors of the kernels (``KernelError``), the CUDA runtime or the device's
 memory are faults of the program or the machine: they propagate, since a
 sticky CUDA error would otherwise turn every later trial into a "crash".
 
-``run_trace_campaign`` waits for the trace engine (ROADMAP.md, queue 1,
-item 9).
+``run_trace_campaign`` is the same loop driven by a recorded error stream
+(``core.trace``): one trial per trace event, in arrival order.
 """
 from __future__ import annotations
 
@@ -46,6 +46,7 @@ from repro_torch.core.domain import LeafSpec, MemoryDomain
 from repro_torch.core.errormodel import InjectionPlan
 from repro_torch.core.policy import HRMPolicy
 from repro_torch.core.taxonomy import Outcome, OutcomeStats
+from repro_torch.core.trace import ErrorTrace, TraceReplayer
 from repro_torch.kernels._build import KernelError
 from repro_torch.kernels.ops import LANES
 
@@ -229,6 +230,40 @@ def run_campaign(eval_fn: Callable, state, *, n_trials: int = 50,
             seed=seed, kinds=kinds, region_filter=region_filter):
         outcome = _run_trial(domain, s, plan, eval_fn, golden_out, unwrap,
                              wrapped, root, kind == "hard", hard_repeat)
+        result.stat(s.region, kind).add(outcome)
+        result.trials.append((s.path, kind, outcome))
+    return result
+
+
+def run_trace_campaign(eval_fn: Callable, state, trace: ErrorTrace, *,
+                       hard_repeat: int = 3,
+                       region_filter: Optional[Callable[[str], bool]] = None,
+                       root: str = "params",
+                       max_events: Optional[int] = None) -> CampaignResult:
+    """The Fig.2 campaign driven by a recorded error stream instead of iid
+    sampling: one trial per trace event, in arrival order.
+
+    The trace decides *where* each trial strikes (its (dimm, addr) mapped
+    onto the domain's leaves: repeat-offender hard faults land on the same
+    word every time), *how wide* (recorded adjacent-burst widths), and
+    *which kind* (the trace's hard flag selects the sticky ``hard_repeat``
+    protocol). Replay is bit-deterministic: the same trace on the same
+    state classifies the same outcomes in every run.
+    """
+    domain, wrapped, unwrap = _campaign_domain(state, root)
+    golden_out = torch.as_tensor(eval_fn(unwrap(domain.payload))[0])
+    result = CampaignResult()
+    strikes = TraceReplayer(trace, domain).strikes
+    if max_events is not None:
+        strikes = strikes[:max_events]
+    for strike in strikes:
+        s = domain.spec.by_path[strike.path]
+        if region_filter is not None and not region_filter(s.region):
+            continue
+        kind = "hard" if strike.hard else "soft"
+        outcome = _run_trial(domain, s, strike.plan(), eval_fn, golden_out,
+                             unwrap, wrapped, root, strike.hard,
+                             hard_repeat)
         result.stat(s.region, kind).add(outcome)
         result.trials.append((s.path, kind, outcome))
     return result

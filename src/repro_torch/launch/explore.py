@@ -27,18 +27,22 @@ below (provenance: docs/DESIGN.md §8); ``--measure`` replaces them with a
 live Fig.2 injection campaign (``core.characterize``) on the workload's
 real state.
 
+``--trace`` replays a recorded error trace (``core.trace``) and prints a
+trace-driven table (``ecc_src=trace``) next to each analytic one.
+
 The port's one addition is ``--device`` (default: the card), where the
 workloads' state lives and the kernels run. The kv-store's random
-parameters and keys come from ``torch.Generator``s seeded with the
-workload's seed, so they differ from the reference's ``jax.random``
-draws. The trace-driven table (``--trace``) waits for the trace engine
-(ROADMAP.md, queue 1, item 9).
+parameters and keys come from ``repro_torch.draws`` seeded with the
+workload's seed: the same on every device, and other than the
+reference's ``jax.random`` draws.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.explore --workload graph
   PYTHONPATH=src python -m repro_torch.launch.explore --dry-run --device cpu
   PYTHONPATH=src python -m repro_torch.launch.explore --workload kvstore \\
       --measure
+  PYTHONPATH=src python -m repro_torch.launch.explore --workload all \\
+      --trace month.npz --device cpu
 """
 from __future__ import annotations
 
@@ -54,16 +58,20 @@ from repro_torch.core.autopolicy import tune_policy, vuln_from_campaign
 from repro_torch.core.availability import (MULTI_BIT_FRACTION,
                                            WEBSEARCH_VULN, VulnProfile,
                                            evaluate_availability,
-                                           paper_design_availability)
+                                           paper_design_availability,
+                                           replay_availability)
 from repro_torch.core.characterize import lm_eval_fn, run_campaign
-from repro_torch.core.costmodel import (MEMORY_COST_SHARE, WEBSEARCH,
-                                        RegionProfile, paper_design_costs,
+from repro_torch.core.costmodel import (_PAPER_POLICIES, MEMORY_COST_SHARE,
+                                        WEBSEARCH, RegionProfile,
+                                        paper_design_costs,
                                         policy_cost_saving, region_fractions)
 from repro_torch.core.domain import MemoryDomain
 from repro_torch.core.eccmeasure import measured_tier_rates
 from repro_torch.core.errormodel import DEFAULT_ADJACENT_FRACTION
 from repro_torch.core.policy import DESIGN_POINTS, HRMPolicy
 from repro_torch.core.tiers import Tier
+from repro_torch.core.trace import ErrorTrace
+from repro_torch.draws import Stream
 from repro_torch.graph import (bfs_eval_fn, graph_state, pagerank_eval_fn,
                                powerlaw_graph)
 from repro_torch.models import forward, init_params
@@ -162,9 +170,7 @@ def websearch_workload() -> Workload:
 def _kvstore_state(cfg, seed: int, device):
     """The kv-store's random parameters and its (2, 32) query keys."""
     params = init_params(cfg, seed=seed, device=device)
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    keys = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen,
-                         device=device)
+    keys = Stream(seed + 1, device).randint(cfg.vocab_size, (2, 32))
     return params, keys
 
 
@@ -228,10 +234,11 @@ def build_workload(name: str, **kw) -> Workload:
 
 
 # ----------------------------------------------------------------- sweep
-def _auto_row(w: Workload, availability_target: float,
-              incorrect_target: float) -> ExploreRow:
+def _auto_point(w: Workload, availability_target: float,
+                incorrect_target: float):
     """The auto-tuned point: cheapest feasible tier map over normally- and
-    less-tested devices (the tuner explores the space the paper opens)."""
+    less-tested devices (the tuner explores the space the paper opens).
+    Returns (ExploreRow, tuned HRMPolicy)."""
     best = None
     for less in (False, True):
         try:
@@ -251,12 +258,13 @@ def _auto_row(w: Workload, availability_target: float,
         "autopolicy", best.policy.tiers, w.profile, w.vuln,
         less_tested=best.policy.error_model.less_tested,
         software_response=True)
-    return ExploreRow(w.name, "autopolicy",
-                      best.memory_cost_rel, best.memory_saving,
-                      best.memory_saving * MEMORY_COST_SHARE,
-                      avail.availability, avail.crashes_per_month,
-                      avail.incorrect_per_million,
-                      avail.recoveries_per_month)
+    row = ExploreRow(w.name, "autopolicy",
+                     best.memory_cost_rel, best.memory_saving,
+                     best.memory_saving * MEMORY_COST_SHARE,
+                     avail.availability, avail.crashes_per_month,
+                     avail.incorrect_per_million,
+                     avail.recoveries_per_month)
+    return row, best.policy
 
 
 def explore_workload(w: Workload, designs: List[str], *,
@@ -276,7 +284,8 @@ def explore_workload(w: Workload, designs: List[str], *,
         source = "measured" if name in MEASURED_ECC_DESIGNS \
             else "calibrated"
         if name == "autopolicy":
-            rows.append(_auto_row(w, availability_target, incorrect_target))
+            rows.append(_auto_point(w, availability_target,
+                                    incorrect_target)[0])
             continue
         if w.paper:
             c, a = paper_costs[name], paper_avail[name]
@@ -299,6 +308,60 @@ def explore_workload(w: Workload, designs: List[str], *,
             w.name, name, cost.memory_cost_rel, cost.memory_saving,
             cost.server_saving, a.availability, a.crashes_per_month,
             a.incorrect_per_million, a.recoveries_per_month, source,
+            a.peer_recoveries_per_month))
+    return rows
+
+
+def _design_tiers(name: str, w: Workload) -> Dict[str, Tier]:
+    """Region -> tier map of one design point on workload ``w``'s regions
+    (websearch uses the paper's own region classes)."""
+    if w.paper:
+        return dict(_PAPER_POLICIES[name])
+    policy = DESIGN_POINTS[name]()
+    return {r: policy.tier_of(r) for r in w.profile.fractions}
+
+
+def explore_workload_trace(w: Workload, designs: List[str],
+                           trace: ErrorTrace, *,
+                           availability_target: float = 0.9990,
+                           incorrect_target: float = 12.0, seed: int = 0,
+                           device=None) -> List[ExploreRow]:
+    """The trace-driven twin of ``explore_workload``: costs are identical
+    (capacity is capacity), availability/crash/incorrect columns come from
+    replaying the recorded error stream (``replay_availability``) instead
+    of the analytic incident budget. Rows are tagged ``ecc_src=trace``.
+    Deterministic: the same trace and seed reproduce the table bit for
+    bit."""
+    rows: List[ExploreRow] = []
+    need_measured = any(n in MEASURED_ECC_DESIGNS for n in designs)
+    rates = _measured_rates(device) if need_measured else None
+    paper_costs = paper_design_costs() if w.paper else None
+    for name in designs:
+        if name == "autopolicy":
+            base, policy = _auto_point(w, availability_target,
+                                       incorrect_target)
+            tiers = {r: policy.tier_of(r) for r in w.profile.fractions}
+            a = replay_availability(
+                "autopolicy", tiers, w.profile, w.vuln, trace,
+                software_response=True, seed=seed)
+            rows.append(ExploreRow(
+                w.name, "autopolicy", base.memory_cost_rel,
+                base.memory_saving, base.server_saving, a.availability,
+                a.crashes_per_month, a.incorrect_per_million,
+                a.recoveries_per_month, "trace"))
+            continue
+        c = paper_costs[name] if w.paper else \
+            policy_cost_saving(DESIGN_POINTS[name](), w.profile)
+        a = replay_availability(
+            name, _design_tiers(name, w), w.profile, w.vuln, trace,
+            software_response=name in _SOFTWARE_RESPONSE,
+            peer_recovery=name in PEER_RECOVERY_DESIGNS,
+            tier_rates=rates if name in MEASURED_ECC_DESIGNS else None,
+            seed=seed)
+        rows.append(ExploreRow(
+            w.name, name, c.memory_cost_rel, c.memory_saving,
+            c.server_saving, a.availability, a.crashes_per_month,
+            a.incorrect_per_million, a.recoveries_per_month, "trace",
             a.peer_recoveries_per_month))
     return rows
 
@@ -339,24 +402,30 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--incorrect-target", type=float, default=12.0,
                     help="incorrect responses per million queries")
     ap.add_argument("--trace", default=None, metavar="FILE",
-                    help="replay a recorded error trace: not ported yet "
-                         "(ROADMAP.md, queue 1, item 9)")
+                    help="replay a recorded error trace (.npz from "
+                         "repro_torch.core.tracegen) and print a "
+                         "trace-driven table next to the analytic one")
+    ap.add_argument("--trace-seed", type=int, default=0,
+                    help="salt for the deterministic per-event region "
+                         "assignment during trace replay")
     ap.add_argument("--dry-run", action="store_true",
                     help="smallest sizes, no campaigns: wiring smoke test")
     ap.add_argument("--device", default=None,
                     help="device of the workloads' state and kernels "
                          "(default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.trace:
-        raise NotImplementedError(
-            "trace-driven exploration waits for the trace engine "
-            "(ROADMAP.md, queue 1, item 9)")
 
     device = resolve_device(args.device)
     workloads = WORKLOADS if args.workload == "all" else (args.workload,)
     designs = list(DESIGNS) if args.design == "all" else [args.design]
     measure = args.measure and not args.dry_run
     n_nodes = 128 if args.dry_run else args.graph_nodes
+    trace = None
+    if args.trace:
+        trace = ErrorTrace.load(args.trace)
+        print(f"trace: {args.trace} — {len(trace)} events over "
+              f"{trace.months:.2f} server-months")
+        print()
 
     for name in workloads:
         kw: Dict = {}
@@ -371,6 +440,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             incorrect_target=args.incorrect_target, device=device)
         print(format_table(w, rows))
         print()
+        if trace is not None:
+            trows = explore_workload_trace(
+                w, designs, trace,
+                availability_target=args.availability_target,
+                incorrect_target=args.incorrect_target,
+                seed=args.trace_seed, device=device)
+            print(f"-- {w.name}: trace-driven replay of the same design "
+                  f"points (ecc_src=trace) --")
+            print(format_table(w, trows))
+            print()
     if args.dry_run:
         print("EXPLORE DRY-RUN OK")
     return 0

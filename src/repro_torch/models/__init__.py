@@ -1,5 +1,5 @@
 """Models of the port: the dense transformer (``init_params``,
-``init_cache``, ``forward``)."""
+``init_cache``, ``forward``, ``decode_step``)."""
 from repro_torch.models.transformer import (  # noqa: F401
-    forward, init_cache, init_params,
+    decode_step, forward, init_cache, init_params,
 )

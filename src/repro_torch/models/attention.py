@@ -1,4 +1,5 @@
-"""Grouped-query attention, full sequence (prefill).
+"""Grouped-query attention: full sequence (prefill) and cached one-token
+decode.
 
 Counterpart of ``repro.models.attention``: Q, K and V are projected in the
 compute dtype and rotated by RoPE; the scores are the compute-dtype product
@@ -6,8 +7,9 @@ cast to float32 afterwards (the reference's rounding), scaled by
 ``1/sqrt(dh)``, causally masked with ``-inf`` and softmaxed in float32,
 then cast to V's dtype for the weighted sum and the output projection.
 ``cfg.shard_hints`` is a GSPMD layout hint in the reference and is ignored
-here. ``attn_decode`` waits for the serving slice (ROADMAP.md, queue 1,
-item 7).
+here: the reference's one-hot cache write under it equals the direct
+write, which ``attn_decode`` always does (sharding is ROADMAP.md, queue 1,
+item 12).
 """
 from __future__ import annotations
 
@@ -62,3 +64,30 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig,
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     o = torch.einsum("bkgqs,bskd->bqkgd", w, v).reshape(B, S, H * dh)
     return o @ p["wo"].to(o.dtype), (k, v)
+
+
+def attn_decode(p, x: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, pos: int, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode. x: (B,1,D); caches: (B,Smax,K,dh); pos: the
+    position of the new token. Returns (y (B,1,D), k_cache, v_cache).
+
+    The new k/v are written into the caches at ``pos`` in place (the
+    reference donates its caches and writes them by
+    ``dynamic_update_slice``), and the scores cover positions ``<= pos``.
+    """
+    B = x.shape[0]
+    dh, H = cfg.head_dim, cfg.n_heads
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q,
+                          k_cache.to(q.dtype)).to(torch.float32)
+    scores = scores / math.sqrt(dh)
+    valid = torch.arange(k_cache.shape[1], device=x.device) <= pos
+    scores = scores.masked_fill(~valid, -math.inf)
+    w = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, v_cache).reshape(B, 1, H * dh)
+    y = o.to(x.dtype) @ p["wo"].to(x.dtype)
+    return y, k_cache, v_cache

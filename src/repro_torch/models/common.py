@@ -3,7 +3,7 @@
 Counterpart of ``repro.models.common``: the same math, in PyTorch. RMSNorm
 and RoPE compute in float32 and cast back to the input dtype, as the
 reference does. ``cross_entropy`` waits for the training slice (ROADMAP.md,
-queue 1, item 7).
+queue 1, item 7b).
 """
 from __future__ import annotations
 

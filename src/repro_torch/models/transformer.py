@@ -3,18 +3,19 @@ and ``forward``.
 
 Counterpart of ``repro.models.transformer``: the same tree, key paths,
 shapes and dtypes, with per-layer weights stacked on a leading layer axis.
-Values come from a ``torch.Generator`` seeded with ``seed``: truncated
+Values come from ``repro_torch.draws`` seeded with ``seed``: truncated
 normal on [-2, 2] times the reference's scales (fan-in for projections,
-0.02 for the embedding, depth-scaled output projections). They cannot
-equal ``jax.random``'s draws; tests that compare the two packages carry
-the reference's state across with ``convert``.
+0.02 for the embedding, depth-scaled output projections), the same bit for
+bit on the card and on the CPU. They cannot equal ``jax.random``'s draws;
+tests that compare the two packages carry the reference's state across
+with ``convert``.
 
-``forward`` is the reference's full-sequence forward for the dense family
-and the token frontend: the reference's ``lax.scan`` over the stacked
-layer axis becomes a Python loop over layer slices (views, no copies).
-``loss_fn`` and ``decode_step`` wait for the training and serving slice
-(ROADMAP.md, queue 1, item 7); the other families and frontends for item
-12.
+``forward`` is the reference's full-sequence forward and ``decode_step``
+its one-token decode against the cache, for the dense family and the
+token frontend: the reference's ``lax.scan`` over the stacked layer axis
+becomes a Python loop over layer slices (views, no copies). ``loss_fn``
+waits for the training slice (ROADMAP.md, queue 1, item 7b); the other
+families and frontends for item 12.
 """
 from __future__ import annotations
 
@@ -25,16 +26,12 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import attn_apply
+from repro_torch.draws import Stream
+from repro_torch.models.attention import attn_apply, attn_decode
 from repro_torch.models.common import dtype_of, rmsnorm
 from repro_torch.models.mlp import mlp_apply
 
 Params = Dict[str, Any]
-
-# the standard normal's CDF at the truncation bounds -2 and 2
-_CDF_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-_CDF_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
-
 
 def _dense_family(cfg: ModelConfig) -> None:
     if cfg.family != "dense" or cfg.frontend != "none":
@@ -49,17 +46,13 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     given)."""
     _dense_family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    draws = Stream(seed, dev)
     pdt = dtype_of(cfg.param_dtype)
     L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
     dh, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 
     def normal(shape, scale: float) -> torch.Tensor:
-        # inverse-CDF sampling of the truncated normal, in float32
-        t = torch.empty(shape, dtype=torch.float32, device=dev)
-        t.uniform_(2 * _CDF_LO - 1, 2 * _CDF_HI - 1, generator=gen)
-        t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(scale)
-        return t.to(pdt)
+        return draws.truncated_normal(shape, scale, pdt)
 
     def dense(*shape, scale=None) -> torch.Tensor:
         return normal(shape, 1.0 / math.sqrt(shape[-2]) if scale is None
@@ -147,3 +140,24 @@ def forward(p: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         if return_cache else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(p, x, cfg), aux, cache
+
+
+# ============================================================ decode step
+def decode_step(p: Params, token: torch.Tensor, pos: int,
+                cache: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """token: (B,) int; pos: the token's position -> (logits (B,V), cache).
+
+    Each layer writes its new k/v into ``cache`` in place (layer views of
+    the stacked (L,B,Smax,K,dh) tensors), so the returned cache is the one
+    passed in."""
+    _dense_family(cfg)
+    x = p["embed"][token][:, None, :].to(dtype_of(cfg.compute_dtype))
+    for i in range(cfg.n_layers):
+        layer = _layer(p["blocks"], i)
+        h, _, _ = attn_decode(
+            layer["attn"], rmsnorm(x, layer["norm1"], cfg.norm_eps),
+            cache["k"][i], cache["v"][i], pos, cfg)
+        x = x + h
+        x = x + mlp_apply(
+            layer["mlp"], rmsnorm(x, layer["norm2"], cfg.norm_eps), cfg)
+    return _head(p, x, cfg)[:, 0], cache

@@ -181,6 +181,17 @@ def test_kvstore_state_is_seeded():
     assert int(k1.max()) < cfg.vocab_size
 
 
-def test_trace_waits_for_the_trace_engine():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        explore.main(["--trace", "month.npz", "--device", CPU])
+def test_trace_waits_for_the_trace_engine(tmp_path, capsys):
+    """The trace engine is ported: ``--trace`` prints the reference's
+    analytic and trace-driven tables for a trace file written by the
+    port."""
+    from repro_torch.core import TraceGenConfig, generate_error_trace
+    path = generate_error_trace(TraceGenConfig(n_events=60),
+                                seed=2).save(tmp_path / "m.npz")
+    argv = ["--workload", "all", "--dry-run", "--trace", str(path),
+            "--trace-seed", "1"]
+    assert jexplore.main(argv) == 0
+    want = capsys.readouterr().out
+    assert explore.main(argv + ["--device", CPU]) == 0
+    got = capsys.readouterr().out
+    assert got == want and got.count("ecc_src=trace") == 3

@@ -16,7 +16,7 @@ from repro_torch.configs import get_tiny
 from repro_torch.convert import state_from_numpy
 from repro_torch.data.synthetic import lm_batch
 from repro_torch.graph import graph_state, powerlaw_graph
-from repro_torch.launch import explore
+from repro_torch.launch import explore, serve
 from repro_torch.models import init_cache, init_params
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -79,6 +79,34 @@ def test_campaign_slice_loads_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
 
 
+def test_serve_and_trace_slice_loads_no_jax_and_no_reference():
+    """The serving and trace slice alone: the runtime, the serve launcher
+    and the trace engine pull in only torch, numpy and the port, and
+    ``python -m repro_torch.launch.serve --device cpu`` runs."""
+    code = textwrap.dedent("""
+        import sys
+        import repro_torch.runtime.steps, repro_torch.runtime.serve_loop
+        import repro_torch.launch.serve
+        import repro_torch.core.trace, repro_torch.core.tracegen
+        import repro_torch.draws
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        assert "repro_torch.models.attention" in sys.modules
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--batch", "2", "--prompt-len", "8", "--new-tokens", "4",
+         "--policy", "typical_server", "--error-rate", "0.5"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1].startswith("tokens=8 corrected=")
+
+
 def test_entry_points_need_a_device_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
@@ -93,6 +121,8 @@ def test_entry_points_need_a_device_without_a_card():
         lm_batch(cfg, 1, 4, 0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         explore.main(["--dry-run"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main([])
     g = powerlaw_graph(64, seed=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         graph_state(g)
