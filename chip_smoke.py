@@ -88,6 +88,38 @@ Needs one CUDA card (an H100: the kernels build for ``sm_90a``) and
    tokens/s, the scrub and inject ms inside the loop and peak memory,
    and splits one decode step's time under ``torch.profiler``.
 
+9. training (``runtime.train_loop.run_training``), each run's launches
+   counted on their own: (a) tiny lm-100m in ``tests/test_substrate.py``'s
+   ``detect_recover`` scenario on the card and on the CPU from one seed,
+   counters and events equal, losses within TINY_LOSS_RTOL; (b)
+   ``examples/train_hrm.py``'s scenario at lm-100m's full config (12
+   layers, d_model 512, vocab 32768, 84 M float32 parameters), 100 steps
+   of batch 8 x 256 under ``detect_recover`` with 0.2 strikes a step (30 %
+   hard), a scrub every 10 steps, a checkpoint every 25 and a node failure
+   at step 60: one restart and the strikes its stream draws, run first
+   with the example's seed 0 and, when that stream flips a parameter's
+   top exponent bit (it does: ``params/head`` at step 17, after which no
+   loss is finite, as in the reference), again with the first seed whose
+   stream does not, where the loss must fall and every loss be finite;
+   (c) ``detect_recover_l`` over params and optimizer moments at 1.0
+   strikes a step, a scrub every 2 steps: SEC-DED corrects; then at error
+   rate 0, under deterministic algorithms, the losses under
+   ``typical_server``, ``detect_recover`` and ``detect_recover_l`` equal
+   the unprotected run's bit for bit; (d) the checkpoint store on the card:
+   the full train state (1.0 GB) saved and loaded bit for bit, and
+   ``clean_copy`` falling back past a corrupted newest snapshot to the
+   older one's bytes; (e) the median ms of a train step and of the scrub,
+   refresh + reassert and strike inside the loop, peak memory, a profiled
+   warm step (device-busy and idle share, device operations a step, top
+   kernels) and the scrub overhead at intervals 10 and 20, (scrub ms +
+   interval x refresh ms) / (interval x step ms); (f) llama3-8b's full
+   width with 2 of its 32 layers (1.49 B bf16 parameters, float32
+   moments), batch 4 x 512, ``typical_server`` on the parameters, 3 steps
+   of ``make_train_step`` and ``MemoryDomain`` in the loop's stage order
+   (strike, scrub, step, refresh) but not through ``run_training``, which
+   saves a 15 GB snapshot at step 0. Snapshots go to a temporary directory
+   outside the repository.
+
 Phase 3c holds the port's random draws (tiny llama3-8b and kvstore-demo
 parameters, the kv-store's query keys) made on the card equal to those
 made on the CPU, bit for bit.
@@ -99,13 +131,18 @@ lists the kernels as JSON: ``launches`` sums the main paths' counts, which
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# cuBLAS reads its workspace setting once, at its first product; phase 9's
+# bit-equality check runs under deterministic algorithms, which need it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -170,6 +207,24 @@ SERVE_KERNELS = {"secded_encode", "secded_scrub", "parity_encode",
                  "parity_check", "bitflip"}
 LOGIT_CHECK_TOKENS = 16
 DECODE_PROFILE_STEPS = 8
+# phase 9: examples/train_hrm.py's scenario at lm-100m's full config, cut
+# from its 300 steps to 100
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 100
+TRAIN_SCRUB, TRAIN_RATE, TRAIN_HARD, TRAIN_CKPT = 10, 0.2, 0.3, 25
+TRAIN_FAIL_AT = int(TRAIN_STEPS * 0.6)
+DRL_STEPS, DRL_RATE, DRL_SCRUB = 20, 1.0, 2     # detect_recover_l on opt
+ZERO_STEPS, ZERO_SCRUB = 10, 2                  # the error-rate-0 runs
+ZERO_POLICIES = (None, "typical_server", "detect_recover",
+                 "detect_recover_l")
+TRAIN_PROFILE_STEPS = 4
+OVERHEAD_INTERVALS = (10, 20)
+# (a): tests/test_substrate.py's detect_recover scenario, card vs CPU; bf16
+# products rounded in another order on each device over 14 steps (measured
+# 9.1e-4 on an H100, so about three times that)
+TINY_LOSS_RTOL = 3e-3
+LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ = 2, 4, 512
+LLAMA_TRAIN_STEPS = 3
+STAGING_KERNELS = {"parity_encode", "parity_check"}  # the store's scrub
 # push results are held to the plain version's at rtol + ATOL_REL x max|y|:
 # both sum in float64 and round once, but the kernels' atomics add in an
 # order that changes from run to run, which can move a rounding by one ulp
@@ -2259,6 +2314,551 @@ def run_serve(params, dev, by_path: dict) -> None:
     _path_launches("serve", SERVE_KERNELS, by_path)
 
 
+# ----------------------------------------------------------- 9. training
+class _TrainTimer:
+    """Device-synchronised wall times of what ``run_training`` calls on the
+    main thread, for the length of a ``with`` block: each train step, each
+    strike, each scheduled scrub of the loop's domain, and the write path's
+    ``refresh`` (with a state) and ``reassert_hard``. The checkpoint's
+    staging domain and its thread are left out."""
+
+    def __init__(self):
+        self.ms = {"step": [], "inject": [], "scrub": [], "refresh": [],
+                   "reassert": []}
+
+    @staticmethod
+    def _ours(dom) -> bool:
+        import threading
+        return threading.current_thread() is threading.main_thread() and \
+            dom.spec.policy.name != "ckpt_staging"
+
+    def _wrap(self, key, fn, when=lambda *a, **k: True):
+        def timed(*a, **k):
+            if not when(*a, **k):
+                return fn(*a, **k)
+            out, ms = _timed(lambda: fn(*a, **k))
+            if key != "scrub" or out[1] is not None:
+                self.ms[key].append(ms)
+            return out
+        return timed
+
+    def __enter__(self):
+        from repro_torch.core import MemoryDomain
+        from repro_torch.runtime import train_loop
+        self._saved = (train_loop.make_train_step, MemoryDomain.inject,
+                       MemoryDomain.scrub, MemoryDomain.refresh,
+                       MemoryDomain.reassert_hard)
+        make, inject, scrub, refresh, reassert = self._saved
+        train_loop.make_train_step = \
+            lambda cfg, tcfg: self._wrap("step", make(cfg, tcfg))
+        MemoryDomain.inject = self._wrap(
+            "inject", inject, lambda d, *a, **k: self._ours(d))
+        MemoryDomain.scrub = self._wrap(
+            "scrub", scrub, lambda d, *a, **k: self._ours(d))
+        MemoryDomain.refresh = self._wrap(
+            "refresh", refresh, lambda d, *a, **k: self._ours(d) and bool(a))
+        MemoryDomain.reassert_hard = self._wrap(
+            "reassert", reassert, lambda d, *a, **k: self._ours(d))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import MemoryDomain
+        from repro_torch.runtime import train_loop
+        (train_loop.make_train_step, MemoryDomain.inject, MemoryDomain.scrub,
+         MemoryDomain.refresh, MemoryDomain.reassert_hard) = self._saved
+
+    def summary(self) -> dict:
+        ms = self.ms
+        med = (lambda xs: float(np.median(xs)) if xs else 0.0)
+        out = {"step_ms_median": med(ms["step"]),
+               "scrub_ms_median": med(ms["scrub"]),
+               "refresh_reassert_ms_median": med(ms["refresh"])
+               + med(ms["reassert"]),
+               "inject_ms_median": med(ms["inject"]),
+               "steps_timed": len(ms["step"]), "scrubs": len(ms["scrub"]),
+               "injects": len(ms["inject"])}
+        for iv in OVERHEAD_INTERVALS:
+            out[f"scrub_overhead_{iv}"] = (
+                out["scrub_ms_median"]
+                + iv * out["refresh_reassert_ms_median"]) / (
+                iv * out["step_ms_median"])
+        return out
+
+
+def _train_need(state, roots, policy, strikes: bool = True) -> set:
+    """The kernels a train run must launch: its domain's codecs, bit-flip
+    when it strikes, and the checkpoint's Par+R staging scrub. Protects a
+    throwaway domain: call it before the counters are reset."""
+    from repro_torch.core import HRMPolicy, MemoryDomain
+    dom = MemoryDomain.protect({r: state[r] for r in roots},
+                               policy or HRMPolicy("unprotected", {}))
+    need = _needed_kernels(dom) | STAGING_KERNELS
+    if not strikes:
+        need.discard("bitflip")
+    return need
+
+
+def _loop(cfg, policy_name, steps, ckpt_dir, *, scrub=None, **kw):
+    """``LoopConfig`` of ``policy_name`` (None: unprotected) with its scrub
+    interval set to ``scrub``."""
+    import dataclasses
+    from repro_torch.core import DESIGN_POINTS
+    from repro_torch.runtime.train_loop import LoopConfig
+    policy = None
+    if policy_name is not None:
+        policy = dataclasses.replace(DESIGN_POINTS[policy_name](),
+                                     scrub_interval=scrub)
+    return LoopConfig(steps=steps, ckpt_dir=ckpt_dir, policy=policy, **kw)
+
+
+def _report_line(name, rep) -> str:
+    return (f"{name}: steps={len(rep.losses)} loss {rep.losses[0]:.4f} -> "
+            f"{rep.losses[-1]:.4f} injected={rep.injected} corrected="
+            f"{rep.scrub_corrected} detected={rep.scrub_detected} "
+            f"recoveries={rep.recoveries} restarts={rep.restarts} "
+            f"stragglers={rep.straggler_events} sidecar_overhead="
+            f"{rep.domain_stats['overhead']:.4f}")
+
+
+def _no_stragglers(events) -> list:
+    return [e for e in events if "straggler" not in e]
+
+
+def train_card_vs_cpu(dev, by_path: dict) -> None:
+    """(a) tiny lm-100m in ``tests/test_substrate.py``'s detect_recover
+    scenario (14 steps, checkpoint every 5, 0.5 strikes a step, node
+    failure at 8, scrub every 4, seed 3) on the CPU and on the card, from
+    one seed: counters and events equal, losses within TINY_LOSS_RTOL."""
+    import tempfile
+    from repro_torch.configs import get_tiny
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import DESIGN_POINTS
+    from repro_torch.data.synthetic import batch_stream
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.steps import init_train_state
+    from repro_torch.runtime.train_loop import run_training
+    cfg = get_tiny("lm-100m")
+    tcfg = TrainConfig(remat="none")
+    need = _train_need(init_train_state(3, cfg, tcfg, device=dev),
+                       ("params",), DESIGN_POINTS["detect_recover"]())
+    reports = {}
+    for where in ("cpu", dev):
+        if where is dev:
+            _build.reset_launches()
+        with tempfile.TemporaryDirectory() as ck:
+            loop = _loop(cfg, "detect_recover", 14, ck, scrub=4,
+                         ckpt_interval=5, error_rate_per_step=0.5,
+                         node_failure_steps=(8,), seed=3)
+            reports[str(where)] = run_training(
+                cfg, tcfg, loop, batch_stream(cfg, 4, 32, device=where),
+                device=where)
+    _path_launches("train_card_vs_cpu", need, by_path)
+    cpu, card = reports["cpu"], reports[str(dev)]
+
+    def counters(r):
+        return (r.injected, r.scrub_corrected, r.scrub_detected,
+                r.recoveries, r.restarts, len(r.losses), r.domain_stats,
+                _no_stragglers(r.events))
+    rel = float(np.max(np.abs(np.array(card.losses) - cpu.losses)
+                       / np.abs(cpu.losses)))
+    print(_report_line("train tiny card", card))
+    print(f"train tiny card vs cpu: counters_equal="
+          f"{counters(card) == counters(cpu)} events="
+          f"{len(_no_stragglers(card.events))} "
+          f"loss_max_rel_diff={rel:.3e} (tolerance {TINY_LOSS_RTOL})")
+    if counters(card) != counters(cpu):
+        raise AssertionError(f"card {counters(card)} vs cpu "
+                             f"{counters(cpu)}")
+    if rel > TINY_LOSS_RTOL or card.restarts != 1 or not card.injected:
+        raise AssertionError("tiny train scenario: losses apart or the "
+                             "drill did not fire")
+
+
+def _lm100m(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import tree
+    from repro_torch.runtime.steps import init_train_state
+    cfg = get_config("lm-100m")
+    tcfg = TrainConfig(lr=3e-4, remat="none")    # examples/train_hrm.py's
+    state = init_train_state(SEED, cfg, tcfg, device=dev)
+    n = sum(t.numel() for t in tree.leaves(state["params"]))
+    nbytes = sum(t.numel() * t.element_size() for t in tree.leaves(state))
+    print(f"train model: lm-100m layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff="
+          f"{cfg.d_ff} vocab={cfg.vocab_size} params={n} "
+          f"({cfg.param_dtype}, compute {cfg.compute_dtype}) "
+          f"train_state_bytes={nbytes}")
+    return cfg, tcfg, state
+
+
+def _train_strikes(spec, loop) -> list:
+    """The train loop's strikes, drawn again from its stream: a Poisson
+    count a step, then per strike one uniform for hard and
+    ``MemoryDomain.inject``'s draws; the node failure sends the step back
+    to the last checkpoint, whose steps draw anew. Returns [(step, leaf,
+    hard, plan)]."""
+    from repro_torch.core import InjectionPlan
+    em = loop.policy.error_model
+    rng = np.random.default_rng(loop.seed + 2)
+    out, step, fired = [], 0, set()
+    while step < loop.steps:
+        for _ in range(rng.poisson(loop.error_rate_per_step)):
+            hard = rng.random() < loop.hard_error_fraction
+            s = spec.protectable[rng.choice(len(spec.protectable),
+                                            p=spec._byte_weights)]
+            out.append((step, s, hard, InjectionPlan.sample(
+                rng, s.rows * 256, 1, hard, em.multi_bit_fraction,
+                em.adjacent_fraction)))
+        if step in loop.node_failure_steps and step not in fired:
+            fired.add(step)
+            step = step // loop.ckpt_interval * loop.ckpt_interval
+            continue
+        step += 1
+    return out
+
+
+def _top_exponent(strikes) -> list:
+    """The strikes that flip bit 30 of a float32, the top exponent bit: a
+    weight near 1 or below becomes about 2**128 times larger (a norm weight
+    of 1.0 becomes inf), which no step survives."""
+    return [(step, s.path, hard) for step, s, hard, plan in strikes
+            if any(w >= 0 and b % 32 == 30
+                   for w, b in zip(plan.word_idx, plan.bit_idx))]
+
+
+def _train_hrm_loop(cfg, ck, seed: int):
+    from repro_torch.core import Response
+    return _loop(cfg, "detect_recover", TRAIN_STEPS, ck, scrub=TRAIN_SCRUB,
+                 ckpt_interval=TRAIN_CKPT, error_rate_per_step=TRAIN_RATE,
+                 hard_error_fraction=TRAIN_HARD,
+                 node_failure_steps=(TRAIN_FAIL_AT,),
+                 response=Response.RELOAD_CLEAN_COPY, seed=seed)
+
+
+def train_hrm(dev, by_path: dict) -> None:
+    """(b) examples/train_hrm.py at lm-100m's full config, TRAIN_STEPS
+    steps, timed stage by stage (e). First with the example's seed (0),
+    then, when that stream sets a parameter's top exponent bit, with the
+    first seed whose stream does not: the loss must fall and stay finite
+    in a run that no such strike hits, and the strikes of both runs must
+    be the ones their streams draw."""
+    import tempfile
+    from repro_torch.core import DESIGN_POINTS, MemoryDomain
+    from repro_torch.data.synthetic import batch_stream
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.train_loop import run_training
+    cfg, tcfg, state = _lm100m(dev)
+    print(f"reduced: train_hrm steps 300->{TRAIN_STEPS} (phase 9's share "
+          "of the run's time limit)")
+    policy = DESIGN_POINTS["detect_recover"]()
+    need = _train_need(state, ("params",), policy)
+    spec = MemoryDomain.protect({"params": state["params"]}, policy).spec
+    seed = 0
+    while True:
+        with tempfile.TemporaryDirectory() as ck:
+            loop = _train_hrm_loop(cfg, ck, seed)
+            strikes = _train_strikes(spec, loop)
+            top = _top_exponent(strikes)
+            name = "train_hrm" if seed == 0 else "train_hrm_clean"
+            _build.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            with _TrainTimer() as timer:
+                rep, wall_ms = _timed(lambda: run_training(
+                    cfg, tcfg, loop, batch_stream(
+                        cfg, TRAIN_BATCH, TRAIN_SEQ, device=dev),
+                    state=state, device=dev))
+        peak = torch.cuda.max_memory_allocated()
+        _path_launches(name, need, by_path)
+        losses = np.array(rep.losses)
+        bad = np.flatnonzero(~np.isfinite(losses))
+        first, last = losses[:5].mean(), losses[-5:].mean()
+        t = timer.summary()
+        print(_report_line(f"{name} lm-100m detect_recover seed {seed}",
+                           rep))
+        print(f"{name}: loss_first5={first:.4f} loss_last5={last:.4f} "
+              f"losses_every_10={np.round(losses[::10], 3).tolist()} "
+              f"first_nonfinite_step_index="
+              f"{int(bad[0]) if bad.size else None} strikes_drawn="
+              f"{len(strikes)} top_exponent_strikes(step,leaf,hard)={top} "
+              f"wall_s={wall_ms / 1e3:.1f} peak_bytes={peak} events="
+              f"{len(_no_stragglers(rep.events))} "
+              + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                         else f"{k}={v}" for k, v in t.items()))
+        if rep.restarts != 1 or not rep.injected or \
+                rep.injected != len(strikes):
+            raise AssertionError(f"{name}: restarts {rep.restarts}, "
+                                 f"injected {rep.injected} of the "
+                                 f"{len(strikes)} its stream draws")
+        if not top:
+            break
+        seed += 1
+        while _top_exponent(_train_strikes(spec, _train_hrm_loop(
+                cfg, "", seed))):
+            seed += 1
+    if not last < first or bad.size:
+        raise AssertionError(f"{name}: the loss did not fall or a loss is "
+                             "not finite")
+
+
+def train_protect_opt(dev, by_path: dict) -> None:
+    """(c) detect_recover_l over params and optimizer moments, DRL_RATE
+    strikes a step, a scrub every DRL_SCRUB: corrections happen. Then
+    ZERO_POLICIES at error rate 0 under deterministic algorithms: every
+    policy's losses equal the unprotected run's bit for bit."""
+    import tempfile
+    import warnings
+    from repro_torch.core import DESIGN_POINTS
+    from repro_torch.data.synthetic import batch_stream
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.train_loop import run_training
+    cfg, tcfg, state = _lm100m(dev)
+    roots = ("params", "opt")
+    need = _train_need(state, roots, DESIGN_POINTS["detect_recover_l"]())
+    _build.reset_launches()
+    with tempfile.TemporaryDirectory() as ck, _TrainTimer() as timer:
+        loop = _loop(cfg, "detect_recover_l", DRL_STEPS, ck, scrub=DRL_SCRUB,
+                     ckpt_interval=10, error_rate_per_step=DRL_RATE,
+                     protect_roots=roots)
+        rep = run_training(cfg, tcfg, loop, batch_stream(
+            cfg, TRAIN_BATCH, TRAIN_SEQ, device=dev), state=state,
+            device=dev)
+    _path_launches("train_dr_l", need, by_path)
+    print(_report_line("train detect_recover_l params+opt", rep) + " "
+          + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                     for k, v in timer.summary().items()))
+    if not rep.scrub_corrected or not np.all(np.isfinite(rep.losses)):
+        raise AssertionError("detect_recover_l corrected nothing")
+    losses, stamp = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for i, name in enumerate(ZERO_POLICIES + (None,)):
+                label = (name or "none") + (
+                    " again" if i == len(ZERO_POLICIES) else "")
+                policy = DESIGN_POINTS[name]() if name else None
+                need = _train_need(state, roots, policy, strikes=False)
+                _build.reset_launches()
+                with tempfile.TemporaryDirectory() as ck, \
+                        _TrainTimer() as timer:
+                    loop = _loop(cfg, name, ZERO_STEPS, ck, scrub=ZERO_SCRUB,
+                                 ckpt_interval=ZERO_STEPS,
+                                 protect_roots=roots)
+                    r = run_training(cfg, tcfg, loop, batch_stream(
+                        cfg, TRAIN_BATCH, TRAIN_SEQ, device=dev),
+                        state=state, device=dev)
+                _path_launches(f"train_rate0_{label.replace(' ', '_')}",
+                               need, by_path)
+                losses[label] = r.losses
+                stamp[label] = timer.summary()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message)[:120] for w in caught
+                     if "deterministic" in str(w.message)})
+    base = losses["none"]
+    for label, ls in losses.items():
+        t = stamp[label]
+        print(f"train rate0 {label}: losses_bit_equal_unprotected="
+              f"{ls == base} first={ls[0]!r} last={ls[-1]!r} "
+              + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                         else f"{k}={v}" for k, v in t.items()))
+    print(f"train rate0: nondeterministic_op_warnings={nondet}")
+    if any(ls != base for ls in losses.values()):
+        raise AssertionError("at error rate 0 a policy changed the losses")
+
+
+def _flip_byte(path: Path) -> None:
+    with open(path, "r+b") as f:
+        f.seek(path.stat().st_size // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def _same_bytes(a, b) -> bool:
+    from repro_torch.core import tree
+    fa, fb = tree.flatten_with_path(a), tree.flatten_with_path(b)
+    return fa[1] == fb[1] and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(_bytes(x), _bytes(y))
+        for (_, x), (_, y) in zip(fa[0], fb[0]))
+
+
+def train_store(dev, by_path: dict) -> None:
+    """(d) the full lm-100m train state (after one and two steps, so the
+    moments are real) through the store on the card: save, load bit for
+    bit, save_async, and clean_copy falling back past a corrupted newest
+    snapshot to the older one's bytes."""
+    import tempfile
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.data.synthetic import batch_stream
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.steps import make_train_step
+    cfg, tcfg, state = _lm100m(dev)
+    step = make_train_step(cfg, tcfg)
+    batches = batch_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, device=dev)
+    older, _ = step(state, next(batches))
+    newer, _ = step(older, next(batches))
+    _build.reset_launches()
+    with tempfile.TemporaryDirectory() as d:
+        store = CheckpointStore(d, device=dev)
+        _, save_ms = _timed(lambda: store.save(1, older))
+        store.save(2, newer)
+        size = sum(f.stat().st_size for f in (Path(d) / "step_00000002")
+                   .iterdir())
+        loaded, load_ms = _timed(lambda: store.load(2, newer))
+        exact = _same_bytes(loaded, newer)
+        del loaded
+        t = time.perf_counter()
+        thread = store.save_async(3, newer)
+        async_ms = (time.perf_counter() - t) * 1e3
+        thread.join()
+        async_total_ms = (time.perf_counter() - t) * 1e3
+        _flip_byte(Path(d) / "step_00000003" / "data.npz")
+        _flip_byte(Path(d) / "step_00000002" / "data.npz")
+        copy = store.clean_copy_fn()
+        got, copy_ms = _timed(lambda: copy("params/embed"))
+        fell_back = store.last_loaded_step
+        wi = copy("blocks/mlp/wi")         # a path relative to params
+        ok = torch.equal(_bytes(got), _bytes(older["params"]["embed"])) \
+            and torch.equal(_bytes(wi),
+                            _bytes(older["params"]["blocks"]["mlp"]["wi"]))
+    _path_launches("train_store", STAGING_KERNELS, by_path)
+    print(f"train store: snapshot_bytes={size} save_ms={save_ms:.1f} "
+          f"load_ms={load_ms:.1f} save_async_return_ms={async_ms:.1f} "
+          f"save_async_total_ms={async_total_ms:.1f} "
+          f"loaded_bit_exact={exact} clean_copy_ms={copy_ms:.1f} "
+          f"clean_copy_fell_back_to={fell_back} clean_copy_bit_exact={ok}")
+    if not exact or not ok or fell_back != 1:
+        raise AssertionError("the store did not round-trip or fall back")
+
+
+def profile_train_step(dev, by_path: dict) -> None:
+    """(e) TRAIN_PROFILE_STEPS warm lm-100m train steps (batch 8 x 256),
+    timed without the profiler and then again under ``torch.profiler``:
+    wall ms a step both ways, device-busy ms a step, the device's idle
+    share against the unprofiled wall time (and against the traced one,
+    which the profiler's own host work inflates), device operations a
+    step, and device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import tree
+    from repro_torch.data.synthetic import batch_stream
+    from repro_torch.runtime.steps import make_train_step
+    cfg, tcfg, state = _lm100m(dev)
+    step = make_train_step(cfg, tcfg)
+    batch = next(batch_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, device=dev))
+    state, m = step(state, batch)
+    float(m["loss"])
+    n = TRAIN_PROFILE_STEPS
+    _sync()
+    t = time.perf_counter()
+    for _ in range(n):
+        state, m = step(state, batch)
+        float(m["loss"])
+    _sync()
+    wall_ms = (time.perf_counter() - t) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _sync()
+        t = time.perf_counter()
+        for _ in range(n):
+            state, m = step(state, batch)
+            float(m["loss"])
+        _sync()
+        traced_ms = (time.perf_counter() - t) * 1e3 / n
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+    ops = sum(e.count for e in events) / n
+    flop = 6 * sum(t.numel() for t in tree.leaves(state["params"])) \
+        * TRAIN_BATCH * TRAIN_SEQ
+    print(f"profile train step (lm-100m, batch {TRAIN_BATCH}x{TRAIN_SEQ}, "
+          f"{n} steps): wall_ms={wall_ms:.3f} traced_wall_ms="
+          f"{traced_ms:.3f} device_busy_ms={busy_ms:.3f} idle_share="
+          f"{1 - busy_ms / wall_ms:.3f} idle_share_traced="
+          f"{1 - busy_ms / traced_ms:.3f} device_ops_per_step="
+          f"{ops:.0f} model_tflop_per_step={flop / 1e12:.3f} (6 x params x "
+          f"tokens)")
+    for e in sorted(events, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:8]:
+        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms "
+              f"x{e.count // n:<4d} {e.key[:90]}")
+
+
+def train_llama_width(dev, by_path: dict) -> None:
+    """(f) llama3-8b's full width, LLAMA_TRAIN_LAYERS of its 32 layers (bf16
+    parameters, float32 moments), batch 4 x 512: LLAMA_TRAIN_STEPS steps
+    under typical_server on the parameters. It drives ``make_train_step``
+    and ``MemoryDomain`` in the loop's stage order (one single-bit strike,
+    scrub, train step, refresh + reassert), not ``run_training``, whose
+    step-0 checkpoint would be a 15 GB snapshot."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import DESIGN_POINTS, MemoryDomain, tree
+    from repro_torch.data.synthetic import batch_stream
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    cfg = get_config("llama3-8b")
+    print(f"reduced: train llama3-8b n_layers {cfg.n_layers}->"
+          f"{LLAMA_TRAIN_LAYERS} (full width through the backward pass)")
+    cfg = cfg.replace(n_layers=LLAMA_TRAIN_LAYERS)
+    tcfg = TrainConfig(remat="none")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(SEED, cfg, tcfg, device=dev)
+    n = sum(t.numel() for t in tree.leaves(state["params"]))
+    mom = sum(t.numel() * t.element_size()
+              for t in tree.leaves(state["opt"]))
+    policy = DESIGN_POINTS["typical_server"]()
+    rng = np.random.default_rng(SEED + 2)
+    step = make_train_step(cfg, tcfg)
+    batches = batch_stream(cfg, LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ,
+                           device=dev)
+    _build.reset_launches()
+    domain = MemoryDomain.protect({"params": state["params"]}, policy)
+    losses, step_ms, corrected = [], [], 0
+    for _ in range(LLAMA_TRAIN_STEPS):
+        t = time.perf_counter()
+        domain, _ = domain.inject(rng, 1, multi_bit_fraction=0.0)
+        domain, rep = domain.scrub()
+        corrected += rep.totals()[0]
+        state = {**state, "params": domain.root("params")}
+        state, m = step(state, next(batches))
+        losses.append(float(m["loss"]))
+        domain = domain.refresh({"params": state["params"]}).reassert_hard()
+        state = {**state, "params": domain.root("params")}
+        _sync()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    _path_launches("train_llama", _needed_kernels(domain), by_path)
+    print(f"train llama3-8b width: layers={cfg.n_layers} params={n} "
+          f"({cfg.param_dtype}) moment_bytes={mom} batch={LLAMA_TRAIN_BATCH}"
+          f"x{LLAMA_TRAIN_SEQ} ms_per_step={[round(x, 1) for x in step_ms]} "
+          f"losses={[round(x, 4) for x in losses]} corrected={corrected} "
+          f"peak_bytes={peak}")
+    if not np.all(np.isfinite(losses)) or corrected != LLAMA_TRAIN_STEPS:
+        raise AssertionError("llama3-8b-width training: a loss is not "
+                             "finite or a single-bit strike went "
+                             "uncorrected")
+
+
+def run_train(dev, by_path: dict) -> None:
+    """Phase 9 (a)-(f): each part runs, and the phase fails after the last
+    if any part failed its checks."""
+    failed = []
+    for part in (train_card_vs_cpu, train_hrm, profile_train_step,
+                 train_protect_opt, train_store, train_llama_width):
+        try:
+            part(dev, by_path)
+        except AssertionError as e:
+            print(f"FAILED {part.__name__}: {e}")
+            failed.append(part.__name__)
+    if failed:
+        raise AssertionError(f"phase 9 parts failed: {failed}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2308,6 +2908,7 @@ def main() -> int:
     phase("7_trace", run_trace, dev, by_path)
     phase("7_kvstore_card_vs_cpu", kvstore_card_vs_cpu, dev)
     phase("8_serve", run_serve, state["params"], dev, by_path)
+    phase("9_train", run_train, dev, by_path)
     print(f"phase_s={json.dumps(phase_s)}")
     print(f"peak_memory_bytes_run={torch.cuda.max_memory_allocated()}")
     print(f"wall_s={time.perf_counter() - t0:.1f}")

@@ -1,5 +1,5 @@
-"""Model configuration for the port: copies of ``repro.configs.base``'s
-``ModelConfig`` and ``ShapeSpec``.
+"""Configuration of the port: copies of ``repro.configs.base``'s
+``ModelConfig``, ``ShapeSpec`` and ``TrainConfig``.
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 The sub-configurations of the other families (MoE, Mamba2, xLSTM) come
@@ -59,3 +59,21 @@ class ShapeSpec:
     seq_len: int
     global_batch: int
     kind: str                    # train | prefill | decode
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-step hyperparameters (shape-independent). The reference's
+    sharding knobs (``zero_moments``, ``scan_layers`` and its
+    ``MeshConfig``) mean nothing on one device and are left out."""
+
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1        # gradient accumulation
+    remat: str = "full"          # none | full | dots (activation checkpoints)
+    grad_compress: bool = False  # int8 gradients with error feedback
+

@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 _MODULES: Dict[str, str] = {
     "llama3-8b": "llama3_8b",
     "kvstore-demo": "kvstore_demo",       # Memcached-analogue workload
+    "lm-100m": "lm_100m",                 # end-to-end trainable ~100M example
 }
 
 

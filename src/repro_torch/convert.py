@@ -1,7 +1,10 @@
 """Carry state between the JAX reference and the port through numpy.
 
 ``state_from_numpy`` turns a nested dict of numpy arrays (the reference's
-state after ``np.asarray`` on each leaf) into the port's tensors. The
+state after ``np.asarray`` on each leaf) into the port's tensors: a
+parameter tree, a ``MemoryDomain`` payload, or a whole train state
+(``params``; ``opt`` with its moments ``m``, ``v`` and the 0-d int32
+``count``; ``ef`` under gradient compression). The
 ``*_to_numpy`` functions turn the port's results back into numpy in the
 reference's layout, for byte comparison: the MIRROR tier's int64 word copy
 comes back as the reference's ``copy_lo``/``copy_hi`` uint32 lanes.
@@ -18,12 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+from repro_torch.core.tree import map_leaves
 
 
 def _from_numpy(arr, device: torch.device) -> torch.Tensor:
@@ -45,12 +43,12 @@ def state_from_numpy(tree, device=None):
     """Nested dict of numpy arrays -> the port's state on ``device`` (the
     card unless given)."""
     dev = resolve_device(device)
-    return _map(lambda a: _from_numpy(a, dev), tree)
+    return map_leaves(lambda a: _from_numpy(a, dev), tree)
 
 
 def state_to_numpy(tree):
     """The port's state -> nested dict of numpy arrays (bf16 as uint16)."""
-    return _map(_to_numpy, tree)
+    return map_leaves(_to_numpy, tree)
 
 
 def sidecar_to_numpy(sidecar) -> Dict[str, Dict[str, np.ndarray]]:

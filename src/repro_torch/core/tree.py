@@ -44,6 +44,14 @@ def structure(tree) -> Treedef:
     return flatten_with_path(tree)[1]
 
 
+def map_leaves(fn, tree):
+    """``tree`` with ``fn`` applied to every leaf; dicts keep their key
+    order."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def _build(td: Treedef, it):
     if td is None:
         return next(it)

@@ -1,1 +1,1 @@
-"""Entry points of the port (``explore``)."""
+"""Entry points of the port (``explore``, ``serve``, ``train``)."""

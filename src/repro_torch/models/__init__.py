@@ -1,5 +1,5 @@
 """Models of the port: the dense transformer (``init_params``,
-``init_cache``, ``forward``, ``decode_step``)."""
+``init_cache``, ``forward``, ``loss_fn``, ``decode_step``)."""
 from repro_torch.models.transformer import (  # noqa: F401
-    decode_step, forward, init_cache, init_params,
+    decode_step, forward, init_cache, init_params, loss_fn,
 )

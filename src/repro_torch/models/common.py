@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.models.common``: the same math, in PyTorch. RMSNorm
 and RoPE compute in float32 and cast back to the input dtype, as the
-reference does. ``cross_entropy`` waits for the training slice (ROADMAP.md,
-queue 1, item 7b).
+reference does. ``cross_entropy`` and ``cross_entropy_sharded`` are the
+training loss, in float32.
 """
 from __future__ import annotations
 
@@ -61,3 +61,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask=None) -> torch.Tensor:
+    """Mean CE over (possibly masked) positions. logits: (..., V) any dtype."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(torch.float32)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def cross_entropy_sharded(logits: torch.Tensor, labels: torch.Tensor,
+                          mask=None) -> torch.Tensor:
+    """The reference's CE for vocab-sharded logits: logsumexp by max and
+    sum, the gold logit by a one-hot contraction instead of a gather. On
+    one device it is ``cross_entropy`` computed another way."""
+    lf = logits.to(torch.float32)
+    m = torch.amax(lf, dim=-1, keepdim=True).detach()
+    logz = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+    onehot = F.one_hot(labels.long(), lf.shape[-1]).to(lf.dtype)
+    gold = (lf * onehot).sum(dim=-1)
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(torch.float32)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,5 +1,5 @@
-"""The port's transformer, dense family: ``init_params``, ``init_cache``
-and ``forward``.
+"""The port's transformer, dense family: ``init_params``, ``init_cache``,
+``forward``, ``loss_fn`` and ``decode_step``.
 
 Counterpart of ``repro.models.transformer``: the same tree, key paths,
 shapes and dtypes, with per-layer weights stacked on a leading layer axis.
@@ -10,25 +10,31 @@ bit on the card and on the CPU. They cannot equal ``jax.random``'s draws;
 tests that compare the two packages carry the reference's state across
 with ``convert``.
 
-``forward`` is the reference's full-sequence forward and ``decode_step``
+``forward`` is the reference's full-sequence forward, ``loss_fn`` its
+training loss (cross-entropy on ``forward``'s logits) and ``decode_step``
 its one-token decode against the cache, for the dense family and the
 token frontend: the reference's ``lax.scan`` over the stacked layer axis
-becomes a Python loop over layer slices (views, no copies). ``loss_fn``
-waits for the training slice (ROADMAP.md, queue 1, item 7b); the other
-families and frontends for item 12.
+becomes a Python loop over layer slices (views, no copies; under autograd
+one ``unbind`` a leaf, whose backward stacks the layer gradients once).
+``remat`` wraps each layer as the reference's ``jax.checkpoint`` does:
+``"full"`` saves nothing of a layer, ``"dots"`` saves its matrix
+products. The other families and frontends wait for ROADMAP.md, queue 1,
+item 12.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.draws import Stream
 from repro_torch.models.attention import attn_apply, attn_decode
-from repro_torch.models.common import dtype_of, rmsnorm
+from repro_torch.models.common import (cross_entropy, cross_entropy_sharded,
+                                       dtype_of, rmsnorm)
 from repro_torch.models.mlp import mlp_apply
 
 Params = Dict[str, Any]
@@ -109,30 +115,72 @@ def _head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x @ w.to(dtype_of(cfg.compute_dtype))
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of the stacked per-layer weights (views)."""
+def _unstack(tree, n: int):
+    """The stacked per-layer weights as ``n`` per-layer dicts of views:
+    one ``unbind`` a leaf, so autograd stacks the layer gradients once
+    instead of adding a full-size gradient for every layer."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return tree.unbind(0)
+
+
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``"dots"``: keep matrix products,
+    recompute the rest (``jax.checkpoint_policies.checkpoint_dots``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in _PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn: Callable, remat: str) -> Callable:
+    """``fn`` under the activation-checkpoint policy ``remat``."""
+    if remat == "none" or not remat:
+        return fn
+    if remat == "dots":
+        try:
+            from torch.utils.checkpoint import \
+                create_selective_checkpoint_contexts
+        except ImportError as e:
+            raise NotImplementedError(
+                "remat='dots' needs torch.utils.checkpoint's selective "
+                "checkpointing, which this PyTorch lacks (ROADMAP.md, "
+                "queue 1, item 7b)") from e
+
+        def context():
+            return create_selective_checkpoint_contexts(_save_products)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=context)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)  # "full"
 
 
 def forward(p: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            return_cache: bool = False):
+            remat: str = "none", return_cache: bool = False):
     """Full-sequence forward. Returns (logits, aux_loss, cache|None); the
     cache is ``{"k", "v"}`` of shape (L,B,S,K,dh)."""
     _dense_family(cfg)
     x = _embed_inputs(p, batch, cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        layer = _layer(p["blocks"], i)
+
+    def body(x, layer):
         h, (k, v) = attn_apply(
             layer["attn"], rmsnorm(x, layer["norm1"], cfg.norm_eps), cfg,
             positions)
         x = x + h
         x = x + mlp_apply(
             layer["mlp"], rmsnorm(x, layer["norm2"], cfg.norm_eps), cfg)
+        return x, k, v
+
+    step = _maybe_remat(body, remat)
+    ks, vs = [], []
+    for layer in _unstack(p["blocks"], cfg.n_layers):
+        x, k, v = step(x, layer)
         if return_cache:
             ks.append(k)
             vs.append(v)
@@ -140,6 +188,23 @@ def forward(p: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         if return_cache else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(p, x, cfg), aux, cache
+
+
+# =================================================================== loss
+def loss_fn(p: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: str = "none"):
+    """(loss, {"ce", "aux"}): mean next-token cross-entropy in float32 over
+    ``batch["labels"]`` (masked by ``batch["mask"]`` when given)."""
+    logits, aux, _ = forward(p, batch, cfg, remat=remat)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if cfg.shard_hints:
+        ce = cross_entropy_sharded(logits, labels, mask)
+    else:
+        ce = cross_entropy(logits, labels, mask)
+    aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
+    loss = ce + aux_w * aux / max(cfg.n_layers, 1)
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ============================================================ decode step
@@ -152,8 +217,7 @@ def decode_step(p: Params, token: torch.Tensor, pos: int,
     passed in."""
     _dense_family(cfg)
     x = p["embed"][token][:, None, :].to(dtype_of(cfg.compute_dtype))
-    for i in range(cfg.n_layers):
-        layer = _layer(p["blocks"], i)
+    for i, layer in enumerate(_unstack(p["blocks"], cfg.n_layers)):
         h, _, _ = attn_decode(
             layer["attn"], rmsnorm(x, layer["norm1"], cfg.norm_eps),
             cache["k"][i], cache["v"][i], pos, cfg)

@@ -1,3 +1,4 @@
-"""Runtime of the port: the serving steps (``steps``) and the batched serve
-loop with HRM on the parameters (``serve_loop``). The training steps and
-loop wait for ROADMAP.md, queue 1, item 7b."""
+"""Runtime of the port: the step builders (``steps``), the batched serve
+loop with HRM on the parameters (``serve_loop``) and the fault-tolerant
+train loop with HRM on the parameters and optimizer moments
+(``train_loop``)."""

@@ -16,8 +16,12 @@ from repro_torch.configs import get_tiny
 from repro_torch.convert import state_from_numpy
 from repro_torch.data.synthetic import lm_batch
 from repro_torch.graph import graph_state, powerlaw_graph
-from repro_torch.launch import explore, serve
+from repro_torch.checkpoint.store import CheckpointStore
+from repro_torch.configs.base import TrainConfig
+from repro_torch.launch import explore, serve, train
 from repro_torch.models import init_cache, init_params
+from repro_torch.runtime.steps import init_train_state
+from repro_torch.runtime.train_loop import LoopConfig, run_training
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -128,3 +132,52 @@ def test_entry_points_need_a_device_without_a_card():
         graph_state(g)
     assert init_params(cfg, device="cpu")["embed"].device.type == "cpu"
     assert graph_state(g, device="cpu")["rank"]["rank"].device.type == "cpu"
+
+
+def test_train_slice_loads_no_jax_and_no_reference(tmp_path):
+    """The training slice alone: the train loop, the checkpoint store, the
+    optimizer and the train launcher pull in only torch, numpy and the
+    port, and ``python -m repro_torch.launch.train --tiny --device cpu``
+    runs."""
+    code = textwrap.dedent("""
+        import sys
+        import repro_torch.runtime.train_loop, repro_torch.checkpoint.store
+        import repro_torch.optim.adamw, repro_torch.optim.compress
+        import repro_torch.launch.train
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        assert "repro_torch.runtime.steps" in sys.modules
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--tiny",
+         "--device", "cpu", "--steps", "4", "--batch", "2", "--seq", "16",
+         "--policy", "typical_server", "--error-rate", "1.0",
+         "--scrub-interval", "2", "--ckpt-dir", str(tmp_path)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1].startswith("injected=")
+    assert (tmp_path / "step_00000000" / "meta.json").exists()
+
+
+def test_train_entry_points_need_a_device_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    cfg = get_tiny("lm-100m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(0, cfg, TrainConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CheckpointStore(tmp_path / "a")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_training(cfg, TrainConfig(), LoopConfig(
+            steps=1, ckpt_dir=str(tmp_path / "b")), iter(()))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--tiny", "--ckpt-dir", str(tmp_path / "c")])
+    assert not (tmp_path / "a").exists() and not (tmp_path / "b").exists()
+    state = init_train_state(0, cfg, TrainConfig(), device="cpu")
+    assert state["opt"]["count"].device.type == "cpu"
+    assert CheckpointStore(tmp_path / "d", device="cpu").device.type == "cpu"
