@@ -120,6 +120,35 @@ Needs one CUDA card (an H100: the kernels build for ``sm_90a``) and
    saves a 15 GB snapshot at step 0. Snapshots go to a temporary directory
    outside the repository.
 
+10. the online serving plane (``repro_torch.serve``), each pass's
+   launches counted on their own: (a) ``benchmarks/serve_slo.py``'s
+   golden and 540-error storm passes (40 bursty requests at 16/s, seed 7,
+   4 slots of 8-token pages, ``detect_recover`` + KV ``parity_r``, a
+   params scrub every 4 iterations) on tiny llama3-8b in float32 compute,
+   on the card and on the CPU from one seed: reports and tokens equal at
+   zero injection, counters equal under the storm unless a crash reset
+   fired on one device only (then named, not failed); (b) llama3-8b's
+   full width with phase 3's 8-layer parameters, 16 slots of 16-token
+   pages (641 pages, two 168 MB pools), 64 bursty requests at 8/s
+   (prompts 128/256/512, 32/64/128 new tokens), a golden and a 540-error
+   storm pass under the model clock with ``debug_invariants`` under each
+   of ``detect_recover`` + ``parity_r``, ``typical_server`` + ``secded``
+   and ``detect_recover`` + ``parity_r`` with peer recovery: every
+   request completed or shed, 540 strikes, under ``typical_server`` the
+   params words struck once corrected and those struck twice flagged
+   (counted between scrubs and crash resets), under peer recovery no
+   disk reload; availability printed against 99.90 % and the incorrect
+   rate against the golden pass; (c) in the first golden pass, the first
+   16 decode steps' logits against ``decode_step`` (batch 1) on each
+   active slot's gathered pages, tokens equal where the top-2 margin
+   exceeds the difference, and four requests' tokens beside a solo
+   ``serve_batch`` (mismatches counted); (d) a storm pass on the wall
+   clock: requests/s, tokens/s, TTFT and TPOT p50/p99, the median ms of
+   a decode step, of a prefill at each prompt length, of the KV access
+   check and of the write-path refresh, their share of the decode step,
+   peak memory; and four iterations of (b)'s ``detect_recover`` storm
+   pass split under ``torch.profiler``.
+
 Phase 3c holds the port's random draws (tiny llama3-8b and kvstore-demo
 parameters, the kv-store's query keys) made on the card equal to those
 made on the CPU, bit for bit.
@@ -206,6 +235,22 @@ SERVE_SCRUB_INTERVAL, SERVE_ERROR_RATE, SERVE_SEED = 16, 0.5, 9
 SERVE_KERNELS = {"secded_encode", "secded_scrub", "parity_encode",
                  "parity_check", "bitflip"}
 LOGIT_CHECK_TOKENS = 16
+# phase 10: the online plane at llama3-8b's full width (phase 3's
+# parameters): 16 slots of 16-token pages, 40 pages a slot for a 512-token
+# prompt and 128 new tokens, 641 pages (two pools of 168 MB); 64 requests
+# of bursty traffic; one server-month's errors compressed into each storm
+ONLINE_SLOTS, ONLINE_PAGE, ONLINE_PREFILLS = 16, 16, 2
+ONLINE_PROMPTS, ONLINE_NEW = (128, 256, 512), (32, 64, 128)
+ONLINE_REQUESTS, ONLINE_RATE, ONLINE_BURST, ONLINE_SEED = 64, 8.0, 8.0, 7
+ONLINE_STORM, ONLINE_SCRUB = 540, 4
+ONLINE_CONFIGS = (("detect_recover", "parity_r", False),   # (policy, KV
+                  ("typical_server", "secded", False),      # tier, peer
+                  ("detect_recover", "parity_r", True))     # recovery)
+AVAILABILITY_BAR = 0.9990      # the paper's single-server bar
+# (a): benchmarks/serve_slo.py's plane on tiny llama3-8b
+SLO_REQUESTS, SLO_RATE, SLO_SLOTS, SLO_PAGE, SLO_SCRUB = 40, 16.0, 4, 8, 4
+PAGED_CHECK_STEPS, SOLO_CHECK_REQUESTS = 16, 4
+ONLINE_PROFILE_AT, ONLINE_PROFILE_ITERS = 300, 4
 DECODE_PROFILE_STEPS = 8
 # phase 9: examples/train_hrm.py's scenario at lm-100m's full config, cut
 # from its 300 steps to 100
@@ -2314,6 +2359,478 @@ def run_serve(params, dev, by_path: dict) -> None:
     _path_launches("serve", SERVE_KERNELS, by_path)
 
 
+# ------------------------------------------------------ 10. online plane
+def _online_traffic(cfg, **kw):
+    """(TrafficConfig, trace): ONLINE_* unless ``kw`` overrides."""
+    from repro_torch.serve import TrafficConfig, generate_trace
+    tc = TrafficConfig(**{**dict(
+        n_requests=ONLINE_REQUESTS, rate=ONLINE_RATE, process="bursty",
+        burst_mult=ONLINE_BURST, prompt_len_choices=ONLINE_PROMPTS,
+        max_new_choices=ONLINE_NEW, seed=ONLINE_SEED), **kw})
+    return tc, generate_trace(tc, cfg.vocab_size)
+
+
+def _online_engine(cfg, params, tc, policy, kv_tier, peer=False, **kw):
+    """An ``OnlineEngine`` over ``params`` under design point ``policy``
+    and KV tier ``kv_tier``, with the phase's geometry unless ``kw``
+    overrides it."""
+    from repro_torch.core import DESIGN_POINTS, Tier
+    from repro_torch.serve import OnlineEngine
+    geometry = {**dict(slots=ONLINE_SLOTS, page_size=ONLINE_PAGE,
+                       max_prefills_per_step=ONLINE_PREFILLS,
+                       scrub_every=ONLINE_SCRUB, seed=ONLINE_SEED,
+                       debug_invariants=True), **kw}
+    return OnlineEngine(cfg, params, max_prompt_len=tc.max_prompt_len,
+                        max_new_cap=tc.max_new_cap,
+                        policy=DESIGN_POINTS[policy](),
+                        kv_tier=Tier(kv_tier), peer_recovery=peer,
+                        **geometry)
+
+
+class _OnlineLog:
+    """What one engine does, in order, for the length of a ``with`` block:
+    each params strike with its leaf and plan ("I"), each params scrub
+    ("S") and each crash reset ("C"); device-synchronised wall ms of its
+    decode steps, prefills (by prompt length), KV access checks, KV
+    write-path refreshes, params scrubs and crash resets; and the wall
+    time at the start of each iteration (its first call, the KV check)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.events = []
+        self.ms = {"decode": [], "prefill": {}, "scrub_kv": [],
+                   "refresh_kv": [], "scrub_params": [], "crash": []}
+        self.iter_t = []
+        self.on_iteration = None     # called with the iteration index
+
+    def _timed_method(self, name, key, event=None):
+        fn = getattr(self.eng, name)
+
+        def wrapped(*a, **k):
+            if event is not None:
+                self.events.append((event,))
+            out, ms = _timed(lambda: fn(*a, **k))
+            if key == "prefill":
+                self.ms[key].setdefault(a[0].prompt_len, []).append(ms)
+            else:
+                self.ms[key].append(ms)
+            return out
+        setattr(self.eng, name, wrapped)
+
+    def __enter__(self):
+        from repro_torch.core import InjectionPlan, MemoryDomain
+        eng, log = self.eng, self
+        self._saved = (MemoryDomain.inject, InjectionPlan.__dict__["sample"])
+        inject, sample = MemoryDomain.inject, InjectionPlan.sample
+        plans = []
+
+        def sample_rec(*a, **k):
+            plans.append(sample(*a, **k))
+            return plans[-1]
+
+        def inject_rec(dom, *a, **k):
+            start = len(plans)
+            out = inject(dom, *a, **k)
+            if dom is eng.param_domain:
+                for ev, plan in zip(out[1], plans[start:]):
+                    log.events.append(("I", dom.spec.by_path[ev["path"]],
+                                       plan))
+            return out
+        MemoryDomain.inject = inject_rec
+        InjectionPlan.sample = sample_rec
+        scrub_kv = eng._scrub_kv
+
+        def iteration(*a, **k):
+            _sync()
+            log.iter_t.append(time.perf_counter())
+            if log.on_iteration is not None:
+                log.on_iteration(len(log.iter_t) - 1)
+            out, ms = _timed(lambda: scrub_kv(*a, **k))
+            log.ms["scrub_kv"].append(ms)
+            return out
+        eng._scrub_kv = iteration
+        self._timed_method("_run_decode", "decode")
+        self._timed_method("_run_prefill", "prefill")
+        self._timed_method("_refresh_kv", "refresh_kv")
+        self._timed_method("_scrub_params", "scrub_params", "S")
+        self._timed_method("_crash_reset", "crash", "C")
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import InjectionPlan, MemoryDomain
+        MemoryDomain.inject, InjectionPlan.sample = self._saved
+        for name in ("_scrub_kv", "_run_decode", "_run_prefill",
+                     "_refresh_kv", "_scrub_params", "_crash_reset"):
+            delattr(self.eng, name)
+
+    def secded_expected(self):
+        """(single-bit, double-bit) struck params words that the scrubs
+        must correct and flag: the words each scrub finds struck once or
+        twice since the last scrub or crash reset (a reset reloads every
+        leaf), counting only bits inside the leaves' bytes (a pad bit is
+        lost on unpacking)."""
+        single = double = 0
+        pending = {}
+        for ev in self.events:
+            if ev[0] == "I":
+                _, s, plan = ev
+                for w, b in zip(plan.word_idx.tolist(),
+                                plan.bit_idx.tolist()):
+                    if w >= 0 and w * 64 + b < s.nbytes * 8:
+                        pending[(s.path, w)] = pending.get((s.path, w), 0) + 1
+                continue
+            if ev[0] == "S":
+                single += sum(n == 1 for n in pending.values())
+                double += sum(n == 2 for n in pending.values())
+            pending = {}
+        return single, double
+
+
+def _med(xs) -> float:
+    return float(np.median(xs)) if len(xs) else float("nan")
+
+
+def _first_diff(a: dict, b: dict):
+    """The first request id whose tokens differ between two response maps
+    (None when they agree)."""
+    for rid in sorted(set(a) | set(b)):
+        if a.get(rid) != b.get(rid):
+            return rid
+    return None
+
+
+def online_card_vs_cpu(dev, by_path: dict) -> None:
+    """(a) ``benchmarks/serve_slo.py``'s golden and storm passes on tiny
+    llama3-8b (float32 compute, so that the two devices' greedy tokens do
+    not hang on a bf16 rounding), on the card and on the CPU from one
+    seed. At zero injection the reports and tokens must be equal; under
+    the storm the counters must be equal unless a crash reset fired on one
+    device only, which is named, with the first request whose tokens
+    differ, and not failed."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_params
+    cfg = get_tiny("llama3-8b").replace(compute_dtype="float32")
+    tc, trace = _online_traffic(
+        cfg, n_requests=SLO_REQUESTS, rate=SLO_RATE, burst_mult=8.0,
+        prompt_len_choices=(8, 16), max_new_choices=(4, 8))
+    runs = {}
+    for where in ("card", "cpu"):
+        params = init_params(cfg, seed=SEED,
+                             device=dev if where == "card" else "cpu")
+        for storm in (0, ONLINE_STORM):
+            _build.reset_launches()
+            eng = _online_engine(cfg, params, tc, "detect_recover",
+                                 "parity_r", slots=SLO_SLOTS,
+                                 page_size=SLO_PAGE,
+                                 scrub_every=SLO_SCRUB)
+            runs[where, storm] = eng.run(trace, storm_errors=storm)
+            if where == "card" and storm:
+                _path_launches("serve_online_tiny", _needed_kernels(
+                    eng.param_domain) | _needed_kernels(eng.kv_domain),
+                    by_path)
+    (card0, ctok0), (cpu0, ptok0) = runs["card", 0], runs["cpu", 0]
+    (card, ctok), (cpu, ptok) = (runs["card", ONLINE_STORM],
+                                 runs["cpu", ONLINE_STORM])
+    other = sum(ctok.get(r) != ptok.get(r) for r in ptok)
+    print(f"online tiny card vs cpu (serve_slo: {SLO_REQUESTS} requests, "
+          f"bursty {SLO_RATE}/s, seed {ONLINE_SEED}, {SLO_SLOTS} slots, "
+          f"page {SLO_PAGE}, detect_recover + parity_r, scrub every "
+          f"{SLO_SCRUB}): zero-injection reports equal="
+          f"{card0.to_dict() == cpu0.to_dict()} tokens equal="
+          f"{ctok0 == ptok0}; storm {ONLINE_STORM}: counters equal="
+          f"{card.counters == cpu.counters} crash_events card/cpu="
+          f"{card.counters['crash_events']}/{cpu.counters['crash_events']} "
+          f"requests with other tokens={other} "
+          f"(first: {_first_diff(ctok, ptok)}) card: {card.summary()}")
+    if card0.to_dict() != cpu0.to_dict() or ctok0 != ptok0:
+        raise AssertionError(f"online tiny: card and CPU differ at zero "
+                             f"injection (first request: "
+                             f"{_first_diff(ctok0, ptok0)})")
+    if card.counters != cpu.counters and \
+            card.counters["crash_events"] == cpu.counters["crash_events"]:
+        raise AssertionError(f"online tiny storm: counters differ: "
+                             f"{card.counters} vs {cpu.counters}")
+
+
+def _paged_logit_check(cfg, checks: list):
+    """A stand-in for ``serve.engine.paged_decode_logits`` that, for its
+    first PAGED_CHECK_STEPS calls, also runs ``models.decode_step`` for
+    each active slot (batch 1, its own position) on that slot's pages
+    gathered into a contiguous cache before the step, and records
+    (max |diff|, max |logit|, tokens agreeing where the top-2 margin
+    exceeds the diff) per step."""
+    from repro_torch.models import decode_step
+    from repro_torch.serve import engine as engine_mod
+    real = engine_mod.paged_decode_logits
+
+    def checked(params, pool_k, pool_v, table, tokens, pos, cfg_, ps):
+        if len(checks) >= PAGED_CHECK_STEPS:
+            return real(params, pool_k, pool_v, table, tokens, pos, cfg_, ps)
+        active = [int(i) for i in (pos > 0).nonzero()[:, 0].tolist()]
+        L, P = pool_k.shape[0], table.shape[1]
+        caches = [{n: pool[:, table[i]].reshape(
+                       L, 1, P * ps, *pool.shape[3:])
+                   for n, pool in (("k", pool_k), ("v", pool_v))}
+                  for i in active]
+        logits = real(params, pool_k, pool_v, table, tokens, pos, cfg_, ps)
+        diff = top = 0.0
+        agree = True
+        for i, cache in zip(active, caches):
+            lg, _ = decode_step(params, tokens[i:i + 1], int(pos[i]), cache,
+                                cfg)
+            want, got = lg[0].float(), logits[i].float()
+            d = float((want - got).abs().max())
+            t2 = want.topk(2).values
+            if float(t2[0] - t2[1]) > d:
+                agree &= bool(want.argmax() == got.argmax())
+            diff, top = max(diff, d), max(top, float(want.abs().max()))
+        checks.append((len(active), diff, top, agree))
+        return logits
+    return real, checked
+
+
+def online_full_width(params, dev, by_path: dict) -> dict:
+    """(b) and (c): a golden and a storm pass of ONLINE_REQUESTS requests
+    under each of ONLINE_CONFIGS, model clock, each pass's launches
+    counted on their own; the first golden pass also holds paged decode
+    against contiguous decode, and four of its requests against a solo
+    ``serve_batch``. Returns the detect_recover storm pass's iteration
+    start times and its ``_IterationProfile``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.serve_loop import serve_batch
+    from repro_torch.serve import engine as engine_mod, incorrect_rate
+    cfg = get_config("llama3-8b").replace(n_layers=N_LAYERS)
+    tc, trace = _online_traffic(cfg)
+    eng = _online_engine(cfg, params, tc, "detect_recover", "parity_r")
+    pool_bytes = eng.cache.pool_k.numel() * eng.cache.pool_k.element_size()
+    print(f"online plane: llama3-8b layers={cfg.n_layers} slots="
+          f"{ONLINE_SLOTS} page_size={ONLINE_PAGE} pages="
+          f"{eng.cache.n_pages} (max {eng.cache.max_pages_per_slot}/slot) "
+          f"pool_bytes=2x{pool_bytes} prompts={ONLINE_PROMPTS} max_new="
+          f"{ONLINE_NEW} prefills/step<={ONLINE_PREFILLS} requests="
+          f"{ONLINE_REQUESTS} bursty {ONLINE_RATE}/s x{ONLINE_BURST} seed "
+          f"{ONLINE_SEED} span={trace[-1].arrival:.3f}s scrub_every="
+          f"{ONLINE_SCRUB} storm={ONLINE_STORM}")
+    print(eng.describe())
+    del eng
+    profiled = None
+    for policy, tier, peer in ONLINE_CONFIGS:
+        tag = f"{policy}{'_peer' if peer else ''}"
+        golden = None
+        for storm in (0, ONLINE_STORM):
+            eng = _online_engine(cfg, params, tc, policy, tier, peer)
+            need = _needed_kernels(eng.param_domain) | \
+                _needed_kernels(eng.kv_domain)
+            if not storm:
+                need.discard("bitflip")
+            checks = []
+            first = golden is None and not peer and policy == \
+                ONLINE_CONFIGS[0][0]
+            if first:
+                real, checked = _paged_logit_check(cfg, checks)
+                engine_mod.paged_decode_logits = checked
+            _build.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            try:
+                with _OnlineLog(eng) as log:
+                    if storm and policy == "detect_recover" and not peer:
+                        log.on_iteration = profile = _IterationProfile()
+                    rep, resp = eng.run(trace, storm_errors=storm)
+                _sync()
+            finally:
+                if first:
+                    engine_mod.paged_decode_logits = real
+            wall_s = time.perf_counter() - t
+            name = f"serve_online_{tag}_{'storm' if storm else 'golden'}"
+            _path_launches(name, need, by_path)
+            c = rep.counters
+            if rep.completed + rep.shed != rep.n_requests:
+                raise AssertionError(f"{name}: {rep.completed} completed + "
+                                     f"{rep.shed} shed of {rep.n_requests}")
+            if storm:
+                if c["injected_params"] + c["injected_kv"] != storm:
+                    raise AssertionError(f"{name}: injected {c}")
+                rep.incorrect_rate = incorrect_rate(golden, resp)
+            else:
+                golden = resp
+            expect = ""
+            if storm and policy == "typical_server":
+                single, double = log.secded_expected()
+                if (c["params_corrected"], c["params_detected"]) != \
+                        (single, double):
+                    raise AssertionError(
+                        f"{name}: params corrected {c['params_corrected']} "
+                        f"detected {c['params_detected']}, struck: {single} "
+                        f"single-bit, {double} double-bit words")
+                expect = (f" (expected: {single} single-bit, {double} "
+                          f"double-bit params words)")
+            if storm and peer and (c["recovery_events"] or
+                                   not c["peer_recovery_events"]):
+                raise AssertionError(f"{name}: peer recovery billed "
+                                     f"{c['recovery_events']} disk reloads, "
+                                     f"{c['peer_recovery_events']} peer")
+            crash = "".join(f" crash_reset_ms={x:.1f}"
+                            for x in log.ms["crash"])
+            bar = "PASS" if rep.availability >= AVAILABILITY_BAR else "FAIL"
+            print(f"{name}: wall_s={wall_s:.2f} iterations="
+                  f"{len(log.iter_t)} {rep.summary()} "
+                  f"availability_vs_99.90%={bar}"
+                  f" counters={json.dumps(c)}{expect}{crash} peak_bytes="
+                  f"{torch.cuda.max_memory_allocated()}")
+            if first:
+                _print_paged_check(checks)
+                _solo_check(cfg, params, trace, golden, dev)
+            if log.on_iteration is not None:
+                profiled = (log.iter_t, profile)
+            del eng, log
+    return profiled
+
+
+def _print_paged_check(checks) -> None:
+    slots = sum(n for n, _, _, _ in checks)
+    diff = max(d for _, d, _, _ in checks)
+    top = max(t for _, _, t, _ in checks)
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    agree = all(a for _, _, _, a in checks)
+    print(f"online paged vs contiguous decode (first {len(checks)} decode "
+          f"steps, {slots} slot-steps, engine batch {ONLINE_SLOTS} vs "
+          f"decode_step batch 1): max|diff|={diff:.4g} max|logit|="
+          f"{top:.4g} = {diff / ulp:.2f} bf16 ulps at max|logit|, tokens "
+          f"equal where the top-2 margin exceeds the diff: {agree}")
+    if not agree or len(checks) < PAGED_CHECK_STEPS:
+        raise AssertionError("paged decode disagrees with contiguous "
+                             "decode on a clear token")
+
+
+def _solo_check(cfg, params, trace, golden, dev) -> None:
+    """SOLO_CHECK_REQUESTS requests of the golden pass beside a solo
+    ``serve_batch`` of each: mismatching tokens counted, not failed (a
+    batch of one lets cuBLAS choose other kernels)."""
+    from repro_torch.runtime.serve_loop import serve_batch
+    out = []
+    for req in trace[:SOLO_CHECK_REQUESTS]:
+        prompt = torch.as_tensor(req.prompt[None], dtype=torch.int64,
+                                 device=dev)
+        solo, _ = serve_batch(cfg, params, prompt, req.max_new)
+        got = golden[req.rid]
+        out.append((req.rid, sum(a != b for a, b in
+                                 zip(solo[0].tolist(), got)), len(got)))
+    print("online engine vs solo serve_batch (rid: mismatched/tokens): "
+          + ", ".join(f"{r}: {m}/{n}" for r, m, n in out))
+
+
+class _IterationProfile:
+    """An ``on_iteration`` hook of ``_OnlineLog``: runs iterations
+    ONLINE_PROFILE_AT to ONLINE_PROFILE_AT + ONLINE_PROFILE_ITERS - 1 under
+    ``torch.profiler`` and keeps the device events and the traced wall ms
+    an iteration."""
+
+    def __init__(self):
+        self.prof = None
+        self.events = None
+        self.traced_ms = None
+
+    def __call__(self, i: int) -> None:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        if i == ONLINE_PROFILE_AT:
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t = time.perf_counter()
+        elif i == ONLINE_PROFILE_AT + ONLINE_PROFILE_ITERS and self.prof:
+            self.traced_ms = (time.perf_counter() - self.t) * 1e3 \
+                / ONLINE_PROFILE_ITERS
+            self.prof.__exit__(None, None, None)
+            self.events = [e for e in self.prof.key_averages()
+                           if e.device_type == DeviceType.CUDA
+                           and e.self_device_time_total > 0]
+            self.prof = None
+
+
+def online_wall(params, dev, by_path: dict, profiled) -> None:
+    """(d) one storm pass under detect_recover + parity_r on the wall
+    clock: throughput, TTFT and TPOT, the median ms of each stage of an
+    iteration, the KV write-path ECC's share of a decode step, peak
+    memory; then the profiled iterations of (b)'s model-clock storm pass
+    (the profiler's own host work stays out of every timed number)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    cfg = get_config("llama3-8b").replace(n_layers=N_LAYERS)
+    tc, trace = _online_traffic(cfg)
+    eng = _online_engine(cfg, params, tc, "detect_recover", "parity_r",
+                         clock="wall")
+    need = _needed_kernels(eng.param_domain) | _needed_kernels(eng.kv_domain)
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with _OnlineLog(eng) as log:
+        rep, _ = eng.run(trace, storm_errors=ONLINE_STORM)
+    _sync()
+    wall_s = time.perf_counter() - t
+    _path_launches("serve_online_wall", need, by_path)
+    peak = torch.cuda.max_memory_allocated()
+    ms = log.ms
+    dec, kv, rf = _med(ms["decode"]), _med(ms["scrub_kv"]), \
+        _med(ms["refresh_kv"])
+    prefill = {n: round(_med(x), 3) for n, x in sorted(ms["prefill"].items())}
+    crash = "".join(f" crash_reset_ms={x:.1f}" for x in ms["crash"])
+    print(f"online wall (detect_recover + parity_r, storm {ONLINE_STORM}): "
+          f"wall_s={wall_s:.2f} iterations={len(log.iter_t)} "
+          f"throughput_rps={rep.throughput_rps:.3f} tokens_per_s="
+          f"{rep.tokens_per_s:.1f} (over the prefill and decode time, "
+          f"elapsed_s={rep.elapsed_s:.3f}) ttft_p50/p99_ms="
+          f"{rep.ttft_p50_s * 1e3:.1f}/{rep.ttft_p99_s * 1e3:.1f} "
+          f"tpot_p50/p99_ms={rep.tpot_p50_s * 1e3:.2f}/"
+          f"{rep.tpot_p99_s * 1e3:.2f} decode_ms_median={dec:.3f} "
+          f"prefill_ms_median={json.dumps(prefill)} kv_check_ms_median="
+          f"{kv:.3f} kv_refresh_ms_median={rf:.3f} write_path_ecc_share="
+          f"{(kv + rf) / dec:.4f} params_scrub_ms_median="
+          f"{_med(ms['scrub_params']):.3f} ({len(ms['scrub_params'])} "
+          f"scrubs){crash} availability={rep.availability:.6f} "
+          f"peak_bytes={peak}")
+    if profiled is None or profiled[1].events is None:
+        raise AssertionError("the storm pass ran no profiled iteration")
+    t, prof = profiled
+    n = ONLINE_PROFILE_ITERS
+    wall_ms = (t[ONLINE_PROFILE_AT] - t[ONLINE_PROFILE_AT - n]) * 1e3 / n
+    busy_ms = sum(e.self_device_time_total for e in prof.events) / 1e3 / n
+    ops = sum(e.count for e in prof.events) / n
+    print(f"profile online iteration (detect_recover + parity_r storm pass, "
+          f"model clock, iterations {ONLINE_PROFILE_AT}-"
+          f"{ONLINE_PROFILE_AT + n - 1}): wall_ms={wall_ms:.3f} (iterations "
+          f"{ONLINE_PROFILE_AT - n}-{ONLINE_PROFILE_AT - 1}, unprofiled) "
+          f"traced_wall_ms={prof.traced_ms:.3f} device_busy_ms={busy_ms:.3f} "
+          f"idle_share={1 - busy_ms / wall_ms:.3f} device_ops_per_iteration="
+          f"{ops:.0f}")
+    for e in sorted(prof.events, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:8]:
+        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms "
+              f"x{e.count // n:<4d} {e.key[:90]}")
+
+
+def run_online(params, dev, by_path: dict) -> None:
+    """Phase 10 (a)-(d): each part runs, and the phase fails after the last
+    if any part failed its checks."""
+    failed, profiled = [], None
+    for part in (online_card_vs_cpu, online_full_width, online_wall):
+        try:
+            if part is online_card_vs_cpu:
+                part(dev, by_path)
+            elif part is online_full_width:
+                profiled = part(params, dev, by_path)
+            else:
+                part(params, dev, by_path, profiled)
+        except AssertionError as e:
+            print(f"FAILED {part.__name__}: {e}")
+            failed.append(part.__name__)
+    if failed:
+        raise AssertionError(f"phase 10 parts failed: {failed}")
+
+
 # ----------------------------------------------------------- 9. training
 class _TrainTimer:
     """Device-synchronised wall times of what ``run_training`` calls on the
@@ -2908,6 +3425,7 @@ def main() -> int:
     phase("7_trace", run_trace, dev, by_path)
     phase("7_kvstore_card_vs_cpu", kvstore_card_vs_cpu, dev)
     phase("8_serve", run_serve, state["params"], dev, by_path)
+    phase("10_online", run_online, state["params"], dev, by_path)
     phase("9_train", run_train, dev, by_path)
     print(f"phase_s={json.dumps(phase_s)}")
     print(f"peak_memory_bytes_run={torch.cuda.max_memory_allocated()}")

@@ -649,7 +649,8 @@ class MemoryDomain:
                 needs: Optional[Dict[str, int]] = None
                 ) -> Tuple["MemoryDomain", List[dict]]:
         """Software response to detected-uncorrectable errors (Table 2):
-        reload flagged leaves from a clean copy, re-encode their sidecar
+        reload flagged leaves from a clean copy (disk checkpoint, or a peer
+        replica under ``Response.PEER_COPY``), re-encode their sidecar
         rows, and escalate recurring offenders to block retirement,
         clearing their sticky errors.
 
@@ -663,10 +664,6 @@ class MemoryDomain:
             return self, [{"action": "consume", "paths": list(needs)}]
         if response is Response.RESTART:
             raise RestartRequired(str(list(needs)))
-        if response is Response.PEER_COPY:
-            raise NotImplementedError(
-                "PEER_COPY comes with the sharded-domain slice of the port "
-                "(ROADMAP.md, queue 1, item 11)")
         leaves = self._leaves()
         hard_map = dict(self.hard_errors)
         events = []
@@ -674,8 +671,11 @@ class MemoryDomain:
             s = self.spec.by_path[path]
             if strikes is not None:
                 strikes[path] = strikes.get(path, 0) + 1
-            clean = _as_leaf(clean_copy(path), s, leaves[s.pos])
-            action = "reload_clean_copy"
+            # in storage of its own: a caller that writes the payload in
+            # place (the serving engine's KV pools) never reaches the copy
+            clean = _as_leaf(clean_copy(path), s, leaves[s.pos]).clone()
+            action = ("peer_copy" if response is Response.PEER_COPY
+                      else "reload_clean_copy")
             if strikes is not None and strikes[path] >= retire_after:
                 if retirement is not None:
                     # retire the damaged 512-byte blocks: the diff of the

@@ -6,8 +6,8 @@ not ported.
 
   RELOAD_CLEAN_COPY  Par+R: fetch the leaf's clean bytes from the durable
                      store (checkpoint).
-  PEER_COPY          fetch from a data-parallel replica (comes with the
-                     sharded-domain slice of the port).
+  PEER_COPY          fetch from a data-parallel replica (an in-memory
+                     gather, billed ``PEER_COPY_SECONDS``).
   RETIRE             block retirement: mark the leaf's faulty 512-byte
                      blocks and stop counting their recurring errors.
   RESTART            abandon the step and restart from the last checkpoint.

@@ -45,8 +45,7 @@ outcomes.
 
 ``bind_trace`` is the multi-domain form (params and KV pools share one
 physical address space, so one recorded server-month covers both); the
-reference's online serving engine uses it, which the port has not yet
-(ROADMAP.md, queue 1, item 10).
+online serving engine (``repro_torch.serve.engine``) uses it.
 """
 from __future__ import annotations
 

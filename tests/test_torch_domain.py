@@ -311,9 +311,13 @@ def test_recover_responses(jstate):
     same, ev = bad.recover(rep, clean_copy=clean.__getitem__,
                            response=Response.CONSUME)
     assert same is bad and ev[0]["action"] == "consume"
-    with pytest.raises(NotImplementedError):
-        bad.recover(rep, clean_copy=clean.__getitem__,
-                    response=Response.PEER_COPY)
+    peer, ev = bad.recover(rep, clean_copy=clean.__getitem__,
+                           response=Response.PEER_COPY)
+    assert [e["path"] for e in ev] == list(rep.needs_recovery())
+    assert {e["action"] for e in ev} == {"peer_copy"}
+    for e in ev:
+        assert torch.equal(peer.leaf(e["path"]), clean[e["path"]])
+        assert peer.leaf(e["path"]) is not clean[e["path"]]
 
 
 def test_unsupported_leaves_and_tiers(jparams):

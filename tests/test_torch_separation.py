@@ -181,3 +181,44 @@ def test_train_entry_points_need_a_device_without_a_card(tmp_path):
     state = init_train_state(0, cfg, TrainConfig(), device="cpu")
     assert state["opt"]["count"].device.type == "cpu"
     assert CheckpointStore(tmp_path / "d", device="cpu").device.type == "cpu"
+
+
+def test_online_serving_slice_loads_no_jax_and_no_reference():
+    """The online serving plane alone: ``repro_torch.serve`` and its
+    launcher pull in only torch, numpy and the port, and
+    ``python -m repro_torch.launch.serve_online --device cpu`` runs."""
+    code = textwrap.dedent("""
+        import sys
+        import repro_torch.serve, repro_torch.launch.serve_online
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        assert "repro_torch.serve.engine" in sys.modules
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_online",
+         "--device", "cpu", "--requests", "4", "--rate", "40", "--slots",
+         "2", "--policy", "detect_recover", "--kv-tier", "parity_r",
+         "--storm-errors", "20"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1].startswith("availability ")
+
+
+def test_serve_online_needs_a_device_without_a_card():
+    """Without ``--device`` and without a card the launcher exits non-zero
+    and names the device to pass; nothing runs on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for extra in ([], ["--dry-run"]):
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve_online",
+             *extra], env=env, capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert "device='cpu'" in out.stderr
+        assert not out.stdout
