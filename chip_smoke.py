@@ -149,6 +149,33 @@ Needs one CUDA card (an H100: the kernels build for ``sm_90a``) and
    peak memory; and four iterations of (b)'s ``detect_recover`` storm
    pass split under ``torch.profiler``.
 
+11. sharded domains (``core.sharded.ShardedMemoryDomain``) and the port's
+   example entry points, after phase 3's state is released, each path's
+   launches counted on their own: (a) tiny llama3-8b as 2 replicas x 3
+   shards under ``typical_server`` and ``peer_dr_l`` on the card and on
+   the CPU from one seed: partitions, strikes, per-shard and merged
+   reports, recovery events and restored bytes equal; (b) llama3-8b at
+   its full config (32 layers, 8.03 B bf16 parameters, 16.06 GB; nothing
+   cut) under ``peer_dr_l`` as 2 replicas x 4 shards (virtual): the
+   per-shard bytes; single-bit plans on the 4 largest leaves of replica
+   0 and of an unsharded ``MemoryDomain`` over the same tensors, merged
+   reports equal path by path; ``examples/sharded_domain.py``'s 3
+   strikes (seed 7) recovered by ``peer_copy`` from replica 1, bit-exact,
+   a second scrub (0, 0); a leaf struck on both replicas reloaded from
+   the clean copy (the untouched parameters); ``retire_after`` strikes of
+   one leaf retiring its block under ``replica0/<path>``; (c)
+   ``typical_server`` on 1 replica x {2, 4, 8} shards: a single-bit
+   strike corrected, a double-bit strike flagged, one warm scrub's time
+   and peak memory (the unsharded scrub is not run; its reckoning is
+   printed); (d) the median wall ms of 5 warm calls of scrub, a 3-strike
+   inject, recover and refresh, sharded (2 x 4) and unsharded, with each
+   scrub's peak, ``physical_stats()`` and the sidecar overhead; (e) the
+   examples ``quickstart``, ``serve_kv``, ``graph_pagerank``,
+   ``train_hrm --small``, ``characterize`` (also ``--trace`` over a
+   ``tracegen`` month) and ``sharded_domain --placement virtual`` on the
+   card, each ending in its OK line, after the mesh placement has raised
+   for want of 8 cards.
+
 Phase 3c holds the port's random draws (tiny llama3-8b and kvstore-demo
 parameters, the kv-store's query keys) made on the card equal to those
 made on the CPU, bit for bit.
@@ -270,6 +297,16 @@ TINY_LOSS_RTOL = 3e-3
 LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ = 2, 4, 512
 LLAMA_TRAIN_STEPS = 3
 STAGING_KERNELS = {"parity_encode", "parity_check"}  # the store's scrub
+# phase 11: sharded domains at llama3-8b's full config (32 layers, nothing
+# cut) and the port's example entry points
+SHARD_TINY = (2, 3)            # (a) replicas x shards, card vs CPU
+SHARD_FULL = (2, 4)            # (b), (d): peer_dr_l, as examples/sharded_domain
+SHARD_COUNTS = (2, 4, 8)       # (c): typical_server on one replica
+SHARD_STRIKES, SHARD_SEED = 3, 7   # examples/sharded_domain.py's strikes
+SHARD_PLAN_LEAVES = 4          # plan strikes on the largest leaves
+SHARD_DRILL_LEAF = "blocks/attn/wk"
+SHARD_RETIRE_AFTER = 3
+VERB_REPS = 5
 # push results are held to the plain version's at rtol + ATOL_REL x max|y|:
 # both sum in float64 and round once, but the kernels' atomics add in an
 # order that changes from run to run, which can move a rounding by one ulp
@@ -655,11 +692,14 @@ def _needed_kernels(dom) -> set:
     return need
 
 
-def _path_launches(name: str, need: set, by_path: dict) -> None:
-    """Record the launches of path ``name`` (counted since its reset) and
-    fail if it skipped a kernel of ``need``."""
+def _path_launches(name: str, need: set, by_path: dict,
+                   earlier: dict | None = None) -> None:
+    """Record the launches of path ``name`` (counted since its reset, plus
+    ``earlier``: the counts of its windows before another path's run cut
+    in) and fail if it skipped a kernel of ``need``."""
     from repro_torch.kernels import _build
-    by_path[name] = dict(_build.LAUNCHES)
+    by_path[name] = {k: v + (earlier or {}).get(k, 0)
+                     for k, v in _build.LAUNCHES.items()}
     missing = sorted(k for k in need if not by_path[name][k])
     print(f"launches {name}: " + json.dumps(by_path[name]))
     if missing:
@@ -3376,6 +3416,405 @@ def run_train(dev, by_path: dict) -> None:
         raise AssertionError(f"phase 9 parts failed: {failed}")
 
 
+# ------------------------------------------ 11. sharded domains, examples
+def _gb(n: int) -> str:
+    return f"{n / 1e9:.3f} GB"
+
+
+def _counts(rep) -> tuple:
+    """A ScrubReport's counts as ({path: int}, {path: int})."""
+    return ({k: int(v) for k, v in rep.corrected.items()},
+            {k: int(v) for k, v in rep.detected_uncorrectable.items()})
+
+
+def _sharded_need(sh) -> set:
+    need = set()
+    for cell in sh.shards[0]:
+        need |= _needed_kernels(cell)
+    return need
+
+
+def _shard_loads(sh) -> list:
+    loads = [0] * sh.n_shards
+    for path, s in sh.shard_of.items():
+        leaf = sh.leaf(path)
+        loads[s] += leaf.numel() * leaf.element_size()
+    return loads
+
+
+def _plan(word: int, bits) -> "object":
+    from repro_torch.core import InjectionPlan
+    bits = list(bits)
+    return InjectionPlan(np.full(len(bits), word, np.int32),
+                         np.array(bits, np.int32), hard=False)
+
+
+def _words(sh, path: str) -> int:
+    """The whole 64-bit words of a leaf."""
+    leaf = sh.leaf(path)
+    return leaf.numel() * leaf.element_size() // 8
+
+
+def _largest(sh, n: int) -> list:
+    size = {p: sh.leaf(p).numel() * sh.leaf(p).element_size()
+            for p in sh.paths(protected_only=True)}
+    return sorted(size, key=lambda p: (-size[p], p))[:n]
+
+
+def _sharded_drill(policy_name: str, device) -> dict:
+    """Phase 11 (a) on one device: tiny llama3-8b, 2 replicas x 3 shards;
+    strikes, scrub, recovery and a second scrub. Returns what must be
+    equal on the card and the CPU."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.core import (DESIGN_POINTS, ShardedMemoryDomain, Tier,
+                                  tree)
+    from repro_torch.models import init_params
+    params = init_params(get_tiny("llama3-8b"), seed=SEED, device=device)
+    sh = ShardedMemoryDomain.protect(params, DESIGN_POINTS[policy_name](),
+                                     n_replicas=SHARD_TINY[0],
+                                     n_shards=SHARD_TINY[1])
+    originals = dict(zip(sh.order, tree.leaves(params)))
+    sh, events = sh.inject(np.random.default_rng(SEED), 4, replica=0)
+    # replica 1: a strike the tier flags (two bits under SEC-DED, one
+    # under parity), so that recovery finds work on both replicas
+    path = _largest(sh, 1)[0]
+    double = sh.tier_of(path) is Tier.SECDED
+    sh = sh.apply_plan(path, _plan(5, (3, 9) if double else (3,)), replica=1)
+    sh, rep = sh.scrub()
+    sh, rec = sh.recover(rep, clean_copy=originals.__getitem__)
+    _, rep2 = sh.scrub()
+    return {"shard_of": sh.shard_of, "events": events,
+            "per_shard": [[_counts(r) for r in row] for row in rep.per_shard],
+            "merged": _counts(rep.domain_report()), "totals": rep.totals(),
+            "needs": rep.needs_recovery(), "recover": rec,
+            "second": rep2.totals(), "need": _sharded_need(sh),
+            "bytes": [_bytes(x).cpu() for r in range(sh.n_replicas)
+                      for x in tree.leaves(sh.state(r))]}
+
+
+def sharded_card_vs_cpu(dev, by_path: dict) -> None:
+    """Phase 11 (a): the tiny drill under typical_server and peer_dr_l on
+    the CPU, then on the card (its launches counted on their own): equal
+    partitions, strikes, per-shard and merged reports, recovery events and
+    restored bytes."""
+    from repro_torch.kernels import _build
+    for name in ("typical_server", "peer_dr_l"):
+        cpu = _sharded_drill(name, "cpu")
+        _build.reset_launches()
+        card = _sharded_drill(name, dev)
+        _path_launches(f"sharded_tiny_{name}", card["need"], by_path)
+        diff = [k for k in cpu if k != "bytes" and cpu[k] != card[k]]
+        same_bytes = all(torch.equal(a, b)
+                         for a, b in zip(cpu["bytes"], card["bytes"]))
+        print(f"sharded tiny {name} {SHARD_TINY[0]}x{SHARD_TINY[1]}: "
+              f"totals={card['totals']} recovered="
+              f"{[(e['replica'], e['path'], e['action']) for e in card['recover']]}"
+              f" second_scrub={card['second']} card == cpu: "
+              f"{'yes' if not diff and same_bytes else diff}")
+        if diff or not same_bytes:
+            raise AssertionError(f"sharded {name}: the card differs from the "
+                                 f"CPU in {diff or 'the restored bytes'}")
+
+
+def sharded_full_depth(params, dev, by_path: dict) -> None:
+    """Phase 11 (b): peer_dr_l over llama3-8b's 32 layers as 2 replicas x 4
+    shards: plan strikes against the unsharded domain, drawn strikes
+    recovered from the peer, a leaf struck on both replicas reloaded from
+    the clean copy (the caller's untouched tensors), and retirement under
+    the replica's key."""
+    from repro_torch.core import (MemoryDomain, RetirementMap,
+                                  ShardedMemoryDomain, peer_dr_l, tree)
+    from repro_torch.examples._common import same_bits
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sh, t_protect = _timed(lambda: ShardedMemoryDomain.protect(
+        params, peer_dr_l(), n_replicas=SHARD_FULL[0],
+        n_shards=SHARD_FULL[1]))
+    originals = dict(zip(sh.order, tree.leaves(params)))
+    print(f"sharded full {sh!r}: protect_ms={t_protect:.1f} per-shard "
+          f"bytes={[_gb(x) for x in _shard_loads(sh)]}")
+    # 2. the same single-bit plans on replica 0 and on an unsharded domain
+    rng = np.random.default_rng(SHARD_SEED)
+    plans = [(p, _plan(int(rng.integers(0, _words(sh, p))),
+                       (int(rng.integers(0, 64)),)))
+             for p in _largest(sh, SHARD_PLAN_LEAVES)]
+    struck = sh
+    for path, plan in plans:
+        struck = struck.apply_plan(path, plan, replica=0)
+    _, rep = struck.scrub()
+    sharded = (_counts(rep.domain_report()), rep.needs_recovery())
+    del struck, rep
+    # the unsharded domain's launches are its own path's, not the
+    # sharded path's: the sharded window so far is set aside
+    sharded_window = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    single = MemoryDomain.protect(params, peer_dr_l())
+    for path, plan in plans:
+        single = single.apply_plan(path, plan)
+    _, s_rep = single.scrub()
+    unsharded = (_counts(s_rep), {0: s_rep.needs_recovery()})
+    _path_launches("unsharded_full", _needed_kernels(single),
+                   by_path)
+    del single, s_rep
+    _build.reset_launches()
+    print(f"sharded full plans on {[p for p, _ in plans]}: merged "
+          f"detected={sharded[0][1]} unsharded detected={unsharded[0][1]}")
+    if sharded != unsharded:
+        raise AssertionError("the sharded merged report differs from the "
+                             "unsharded domain's")
+    # 3. drawn strikes on replica 0, recovered from replica 1
+    struck, events = sh.inject(np.random.default_rng(SHARD_SEED),
+                               SHARD_STRIKES, replica=0)
+    fixed, rep = struck.scrub()
+    del struck
+    healed, rec = fixed.recover(rep)
+    del fixed
+    _, rep2 = healed.scrub()
+    exact = same_bits(healed.state(0), params)
+    print(f"sharded full strikes: {[(e['path'], e['words']) for e in events]}"
+          f" scrub={rep.totals()} recovered="
+          f"{[(e['action'], e['path'], e.get('donor')) for e in rec]} "
+          f"state(0) bit-exact={exact} second_scrub={rep2.totals()}")
+    if not rec or any(e["action"] != "peer_copy" or e["donor"] != 1
+                      for e in rec) or not exact or rep2.totals() != (0, 0):
+        raise AssertionError("the drawn strikes were not all healed by "
+                             "peer copies from replica 1")
+    del healed, rep, rep2
+    # 4. the same leaf struck on both replicas: the disk path
+    path = SHARD_DRILL_LEAF
+    plan = _plan(_words(sh, path) // 3, (17,))
+    both = sh.apply_plan(path, plan, replica=0)
+    both = both.apply_plan(path, plan, replica=1)
+    both, rep = both.scrub()
+    both, rec = both.recover(rep, clean_copy=originals.__getitem__)
+    exact = all(same_bits(both.state(r), params) for r in range(2))
+    print(f"sharded full both replicas struck on {path}: recovered="
+          f"{[(e['replica'], e['action']) for e in rec]} bit-exact={exact}")
+    if [e["action"] for e in rec] != ["reload_clean_copy"] * 2 or not exact:
+        raise AssertionError("a leaf struck on every replica was not "
+                             "reloaded from the clean copy")
+    del both, rep
+    # 5. the same leaf struck retire_after times: retired under replica 0
+    strikes, retired = {}, RetirementMap()
+    cur, actions = sh, []
+    for _ in range(SHARD_RETIRE_AFTER):
+        cur = cur.apply_plan(path, _plan(130, (3,)), replica=0)
+        cur, rep = cur.scrub()
+        cur, rec = cur.recover(rep, strikes=strikes, retirement=retired,
+                               retire_after=SHARD_RETIRE_AFTER)
+        actions += [e["action"] for e in rec]
+    exact = same_bits(cur.state(0), params)
+    print(f"sharded full retirement: actions={actions} strikes={strikes} "
+          f"retired={ {k: sorted(v) for k, v in retired.blocks.items()} } "
+          f"bit-exact={exact}")
+    if actions[-1] != "peer_copy+retire" or \
+            set(retired.blocks) != {f"replica0/{path}"} or not exact:
+        raise AssertionError("retirement did not key the blocks by replica")
+    del cur
+    _path_launches("sharded_full", _sharded_need(sh), by_path,
+                   earlier=sharded_window)
+    print(f"sharded full peak_bytes={torch.cuda.max_memory_allocated()}")
+
+
+def _median_ms(fn) -> float:
+    """Median wall ms of VERB_REPS calls after one warm-up call."""
+    out, _ = _timed(fn)
+    del out
+    times = []
+    for _ in range(VERB_REPS):
+        out, ms = _timed(fn)
+        del out
+        times.append(ms)
+    return _med(times)
+
+
+def _verb_times(dom, clean_copy, **inject_kw) -> dict:
+    """Median ms of scrub, a 3-strike inject, recover (peer copies for a
+    sharded domain, reloads from ``clean_copy`` for a plain one) and
+    refresh of ``dom``, and one warm scrub's peak."""
+    rng = lambda: np.random.default_rng(SHARD_SEED)  # noqa: E731
+    struck, _ = dom.inject(rng(), SHARD_STRIKES, **inject_kw)
+    flagged, rep = struck.scrub()
+    del struck
+    out = {"scrub_ms": _median_ms(dom.scrub),
+           "inject_ms": _median_ms(lambda: dom.inject(
+               rng(), SHARD_STRIKES, **inject_kw)),
+           "recover_ms": _median_ms(lambda: flagged.recover(
+               rep, clean_copy=clean_copy)),
+           "refresh_ms": _median_ms(dom.refresh)}
+    del flagged, rep
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    scrubbed = dom.scrub()
+    _sync()
+    out["scrub_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["resident_bytes"] = resident
+    del scrubbed
+    return out
+
+
+def sharded_verbs(params, by_path: dict) -> None:
+    """Phase 11 (d): the verbs' median wall ms at 32 layers under peer_dr_l,
+    sharded 2 x 4 (both replicas scrubbed and refreshed) and unsharded,
+    with each scrub's peak; the fleet's footprint and sidecar overhead."""
+    from repro_torch.core import (MemoryDomain, ShardedMemoryDomain,
+                                  peer_dr_l, tree)
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    sh = ShardedMemoryDomain.protect(params, peer_dr_l(),
+                                     n_replicas=SHARD_FULL[0],
+                                     n_shards=SHARD_FULL[1])
+    originals = dict(zip(sh.order, tree.leaves(params)))
+    t_sh = _verb_times(sh, originals.__getitem__, replica=0)
+    phys, st = sh.physical_stats(), sh.stats()
+    _path_launches("sharded_verbs", _sharded_need(sh), by_path)
+    del sh
+    single = MemoryDomain.protect(params, peer_dr_l())
+    t_one = _verb_times(single, originals.__getitem__)
+    s_st = single.stats()
+    del single
+    print(f"sharded verbs peer_dr_l {SHARD_FULL[0]}x{SHARD_FULL[1]} "
+          f"(median of {VERB_REPS} warm calls, wall ms): "
+          + json.dumps({k: round(v, 3) if k.endswith("_ms") else v
+                        for k, v in t_sh.items()}))
+    print(f"unsharded verbs peer_dr_l (the same, one replica): "
+          + json.dumps({k: round(v, 3) if k.endswith("_ms") else v
+                        for k, v in t_one.items()}))
+    print(f"sharded physical_stats={json.dumps(phys)} "
+          f"logical payload={st.payload_bytes} sidecar={st.sidecar_bytes} "
+          f"overhead={st.overhead:.4%}; unsharded sidecar="
+          f"{s_st.sidecar_bytes} overhead={s_st.overhead:.4%}")
+
+
+def sharded_typical_server(params, by_path: dict) -> None:
+    """Phase 11 (c): typical_server over the 32 layers, 1 replica x {2, 4,
+    8} shards: a single-bit strike corrected, a double-bit strike flagged,
+    and one warm scrub's time and peak memory per shard count. The
+    unsharded scrub is not run; its reckoning is printed."""
+    from repro_torch.core import ShardedMemoryDomain, tree, typical_server
+    from repro_torch.kernels import _build
+    payload = sum(t.numel() * t.element_size() for t in tree.leaves(params))
+    for n in SHARD_COUNTS:
+        _build.reset_launches()
+        sh = ShardedMemoryDomain.protect(params, typical_server(),
+                                         n_replicas=1, n_shards=n)
+        one, two = _largest(sh, 2)
+        struck = sh.apply_plan(one, _plan(_words(sh, one) // 3, (11,)))
+        struck = struck.apply_plan(two, _plan(_words(sh, two) // 2,
+                                              (20, 21)))
+        fixed, rep = struck.scrub()
+        del struck, fixed
+        corr, unc = _counts(rep.domain_report())
+        ok = (corr[one] == 1 and sum(corr.values()) == 1
+              and unc[two] == 1 and sum(unc.values()) == 1
+              and rep.needs_recovery() == {0: {two: 1}})
+        del rep
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, ms = _timed(sh.scrub)
+        peak = torch.cuda.max_memory_allocated()
+        del out
+        _path_launches(f"sharded_typical_server_{n}", _sharded_need(sh),
+                       by_path)
+        print(f"sharded typical_server 1x{n}: per-shard bytes="
+              f"{[_gb(x) for x in _shard_loads(sh)]} single-bit on {one} "
+              f"corrected={corr[one]} double-bit on {two} flagged={unc[two]}"
+              f" warm_scrub_ms={ms:.1f} resident={resident} "
+              f"scrub_peak_bytes={peak} ({_gb(peak)})")
+        del sh
+        if not ok:
+            raise AssertionError(f"typical_server 1x{n}: corrected {corr}, "
+                                 f"flagged {unc}")
+    # resident payload and check bytes, then the packed words, the
+    # corrected words and the new check bytes of the one tier buffer
+    print(f"unsharded typical_server scrub at 32 layers: not run; reckoned "
+          f"peak {_gb(payload)} x (1 + 1/8 + 1 + 1 + 1/8) = "
+          f"{_gb(int(payload * 3.25))}")
+
+
+def run_sharded(dev, by_path: dict) -> None:
+    """Phase 11 (a)-(d): each part runs, and the phase fails after the last
+    if any part failed its checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.models import init_params
+    failed = []
+
+    def part(fn, *args):
+        try:
+            fn(*args)
+        except AssertionError as e:
+            print(f"FAILED {fn.__name__}: {e}")
+            failed.append(fn.__name__)
+
+    part(sharded_card_vs_cpu, dev, by_path)
+    cfg = get_config("llama3-8b")
+    params, ms = _timed(lambda: init_params(cfg, seed=SEED, device=dev))
+    leaves = tree.leaves(params)
+    print(f"sharded model: llama3-8b at its full config, layers="
+          f"{cfg.n_layers} params={sum(t.numel() for t in leaves)} bytes="
+          f"{sum(t.numel() * t.element_size() for t in leaves)} "
+          f"({cfg.param_dtype}) init_ms={ms:.1f}; nothing cut")
+    del leaves
+    part(sharded_full_depth, params, dev, by_path)
+    part(sharded_verbs, params, by_path)
+    part(sharded_typical_server, params, by_path)
+    if failed:
+        raise AssertionError(f"phase 11 parts failed: {failed}")
+
+
+def run_examples(dev, by_path: dict) -> None:
+    """Phase 11 (e): the port's examples on the card at their own sizes,
+    each path's launches counted on their own; each must end with its OK
+    line. The mesh placement of ``sharded_domain`` needs 8 cards and must
+    raise on fewer."""
+    from repro_torch.core import tracegen
+    from repro_torch.examples import (characterize, graph_pagerank,
+                                      quickstart, serve_kv, sharded_domain,
+                                      train_hrm)
+    from repro_torch.kernels import _build
+    codec = {"parity_encode", "parity_check", "bitflip"}
+    secded = {"secded_encode", "secded_scrub"}
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    month = out / "examples_month.npz"
+    tracegen.main(["--out", str(month), "--seed", str(TRACE_SEED)])
+    n_cards = torch.cuda.device_count()
+    print(f"examples: torch.cuda.device_count()={n_cards}; sharded_domain "
+          f"--placement mesh needs 8 CUDA devices (2 replicas x 4 shards), "
+          f"so it runs with --placement virtual")
+    if n_cards < 8:
+        try:
+            sharded_domain.main([])
+        except ValueError as e:
+            print(f"examples sharded_domain --placement mesh raised: {e}")
+        else:
+            raise AssertionError("the mesh placement ran on fewer than 8 "
+                                 "cards")
+    runs = (("quickstart", quickstart, [], codec | secded),
+            ("serve_kv", serve_kv, [], codec),
+            ("graph_pagerank", graph_pagerank, [],
+             codec | secded | set(GRAPH_KERNELS)),
+            ("train_hrm", train_hrm, ["--small"], codec),
+            ("characterize", characterize, [], {"bitflip", "segsum_push"}),
+            ("characterize_trace", characterize, ["--trace", str(month)],
+             {"bitflip", "segsum_push"}),
+            ("sharded_domain", sharded_domain, ["--placement", "virtual"],
+             codec))
+    for name, module, argv, need in runs:
+        _build.reset_launches()
+        text, ms = _timed(lambda: _stdout_of(module.main, argv))
+        lines = text.strip().splitlines()
+        print(f"examples {name} {' '.join(argv)}: wall_s={ms / 1e3:.3f} "
+              f"last={lines[-1]!r}")
+        print("  | " + "\n  | ".join(lines[-6:-1]))
+        _path_launches(f"examples_{name}", need, by_path)
+        if not lines[-1].endswith(" OK"):
+            raise AssertionError(f"example {name} did not end with its OK "
+                                 "line")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3427,6 +3866,11 @@ def main() -> int:
     phase("8_serve", run_serve, state["params"], dev, by_path)
     phase("10_online", run_online, state["params"], dev, by_path)
     phase("9_train", run_train, dev, by_path)
+    # phase 11 holds llama3-8b's full 16 GB parameters: phase 3's state goes
+    del state
+    torch.cuda.empty_cache()
+    phase("11_sharded", run_sharded, dev, by_path)
+    phase("11_examples", run_examples, dev, by_path)
     print(f"phase_s={json.dumps(phase_s)}")
     print(f"peak_memory_bytes_run={torch.cuda.max_memory_allocated()}")
     print(f"wall_s={time.perf_counter() - t0:.1f}")

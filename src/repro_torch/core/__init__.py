@@ -1,5 +1,6 @@
 """Core of the port: tiers, error model, policies, recovery, scrub reports,
-the ``MemoryDomain`` verbs, measured per-tier ECC outcome rates
+the ``MemoryDomain`` verbs, sharded domains with peer-copy recovery
+(``sharded``), measured per-tier ECC outcome rates
 (``eccmeasure``), the Fig. 5 cost and availability models
 (``costmodel``/``availability``), the Fig. 2 campaign (``taxonomy``,
 ``characterize``), the policy auto-tuner (``autopolicy``) and the error
@@ -31,10 +32,13 @@ from repro_torch.core.errormodel import ErrorModel, InjectionPlan  # noqa: F401
 from repro_torch.core.policy import (  # noqa: F401
     DESIGN_POINTS, REGIONS, HRMPolicy, burst_dr_l, classify_path,
     dected_server, detect_recover, detect_recover_l, mirror_dr_l,
-    typical_server,
+    peer_dr_l, typical_server,
 )
 from repro_torch.core.recovery import (  # noqa: F401
     BLOCK_BYTES, Response, RestartRequired, RetirementMap, flagged_blocks,
+)
+from repro_torch.core.sharded import (  # noqa: F401
+    ShardedMemoryDomain, ShardedScrubReport,
 )
 from repro_torch.core.sidecar import ScrubReport  # noqa: F401
 from repro_torch.core.tiers import Tier  # noqa: F401

@@ -44,12 +44,17 @@ class ScrubReport:
     @classmethod
     def merged(cls, reports: Iterable["ScrubReport"]) -> "ScrubReport":
         """Aggregate per-shard (or per-replica) reports into one: counts
-        sum per path, folded on the host."""
+        sum per path, folded on the host with one device sync per report
+        (the reports may lie on different devices of a mesh)."""
         corr: Dict[str, int] = {}
         unc: Dict[str, int] = {}
         for rep in reports:
-            for out, src in ((corr, rep.corrected),
-                             (unc, rep.detected_uncorrectable)):
-                for k, v in src.items():
-                    out[k] = out.get(k, 0) + int(v)
+            n_c = len(rep.corrected)
+            counts = _host_counts(list(rep.corrected.values())
+                                  + list(rep.detected_uncorrectable.values()))
+            for out, keys, ns in ((corr, rep.corrected, counts[:n_c]),
+                                  (unc, rep.detected_uncorrectable,
+                                   counts[n_c:])):
+                for k, n in zip(keys, ns):
+                    out[k] = out.get(k, 0) + n
         return cls(corrected=corr, detected_uncorrectable=unc)

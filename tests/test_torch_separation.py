@@ -222,3 +222,36 @@ def test_serve_online_needs_a_device_without_a_card():
         assert out.returncode != 0
         assert "device='cpu'" in out.stderr
         assert not out.stdout
+
+
+def test_sharded_and_examples_slice_loads_no_jax_and_no_reference():
+    """The sharded domains, the domain mesh and every example entry point
+    pull in only torch, numpy and the port, and ``python -m
+    repro_torch.examples.sharded_domain --placement virtual --device cpu``
+    runs."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import repro_torch.core.sharded, repro_torch.launch.mesh
+        import repro_torch.examples
+        names = [m.name for m in pkgutil.iter_modules(
+            repro_torch.examples.__path__, "repro_torch.examples.")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        print(" ".join(sorted(n.rsplit(".", 1)[-1] for n in names)))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert set(out.stdout.split()) >= {
+        "quickstart", "serve_kv", "graph_pagerank", "train_hrm",
+        "characterize", "sharded_domain"}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.sharded_domain",
+         "--placement", "virtual", "--device", "cpu"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1] == "SHARDED SMOKE OK"
