@@ -176,9 +176,35 @@ Needs one CUDA card (an H100: the kernels build for ``sm_90a``) and
    card, each ending in its OK line, after the mesh placement has raised
    for want of 8 cards.
 
+12. the MoE, hybrid (Mamba2) and xLSTM families, after phase 11, each
+   path's launches counted on their own (``families_*``): (a) tiny
+   granite-moe-3b-a800m, deepseek-moe-16b, zamba2-2.7b and xlstm-350m in
+   float32 compute on the card and on the CPU from one seed: parameters
+   equal bit for bit, ``forward`` logits and ``aux`` and 16
+   ``decode_step`` logits within FAMILY_TINY_REL, ``serve_batch`` tokens
+   and report equal under detect_recover with strikes, and tiny
+   granite's 32-trial campaign equal trial by trial; (b) ``serve_batch``
+   on granite-moe-3b-a800m, zamba2-2.7b and xlstm-350m whole and
+   deepseek-moe-16b at full width with 4 of its 28 layers, phase 8's
+   prompts, new tokens and strikes under typical_server and
+   detect_recover, after decode is held against ``forward`` (MoE at a
+   capacity factor that drops nothing): sizes, prefill ms, ms per token,
+   tokens/s, peak memory, strikes drawn, corrected and flagged (every
+   single-bit strike corrected under typical_server), sidecar overhead;
+   (c) ``OnlineEngine`` on granite-moe-3b-a800m whole with phase 10's
+   plane, trace and 540-error storm under detect_recover + parity_r
+   (golden and storm passes, every request completed or shed,
+   availability against 99.90 %), and at a no-drop capacity the first
+   16 paged decode steps against ``decode_step`` on each slot's gathered
+   pages; (d) the Fig. 2 campaign on granite-moe-3b-a800m and zamba2-2.7b
+   whole, 32 single-error soft trials in each region (experts, attn,
+   embed, norm; ssm, attn, mlp) after the determinism check: masked,
+   incorrect and crash shares.
+
 Phase 3c holds the port's random draws (tiny llama3-8b and kvstore-demo
-parameters, the kv-store's query keys) made on the card equal to those
-made on the CPU, bit for bit.
+parameters, the kv-store's query keys, the four tiny MoE, hybrid and
+xLSTM configs' parameters and 2**20 ``Stream.normal`` draws) made on the
+card equal to those made on the CPU, bit for bit.
 
 Its last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels as JSON: ``launches`` sums the main paths' counts, which
@@ -307,6 +333,26 @@ SHARD_PLAN_LEAVES = 4          # plan strikes on the largest leaves
 SHARD_DRILL_LEAF = "blocks/attn/wk"
 SHARD_RETIRE_AFTER = 3
 VERB_REPS = 5
+# phase 12: the MoE, hybrid and xLSTM families at full width
+FAMILY_ARCHS = ("granite-moe-3b-a800m", "deepseek-moe-16b", "zamba2-2.7b",
+                "xlstm-350m")
+# deepseek-moe-16b whole is 33.8 GB of bf16 parameters and the scrub holds
+# about five copies of a payload: at 4 of its 28 layers it is 5.5 GB
+FAMILY_DEPTH = {"deepseek-moe-16b": 4}
+FAMILY_POLICIES = ("typical_server", "detect_recover")
+FAMILY_NO_DROP = 16.0          # MoE capacity factor at which nothing drops
+# (a): tiny configs card vs CPU in float32; products summed in other
+# orders on each device
+FAMILY_TINY_REL, FAMILY_TINY_TOKENS, FAMILY_DECODE_STEPS = 1e-4, 40, 16
+FAMILY_TINY_TRIALS = 16        # per error kind: 32 trials
+FAMILY_ONLINE_ARCH = "granite-moe-3b-a800m"
+FAMILY_CHECK_REQUESTS = 16     # (c): the no-drop paged check's trace
+FAMILY_REGION_TRIALS = 32      # (d): single-error soft trials a region
+NORMAL_DRAWS = 1 << 20         # phase 3c: Stream.normal card vs CPU
+FAMILY_REGIONS = {
+    "granite-moe-3b-a800m": ("params/experts", "params/attn",
+                             "params/embed", "params/norm"),
+    "zamba2-2.7b": ("params/ssm", "params/attn", "params/mlp")}
 # push results are held to the plain version's at rtol + ATOL_REL x max|y|:
 # both sum in float64 and round once, but the kernels' atomics add in an
 # order that changes from run to run, which can move a rounding by one ulp
@@ -635,23 +681,37 @@ def model_state(dev):
 
 def check_draws(dev) -> None:
     """Phase 3c: tiny llama3-8b and kvstore-demo parameters and the
-    kv-store's query keys made on the card equal those made on the CPU, bit
-    for bit."""
+    kv-store's query keys, the four tiny MoE, hybrid and xLSTM configs'
+    parameters, and NORMAL_DRAWS of ``Stream.normal`` made on the card
+    equal those made on the CPU, bit for bit."""
     from repro_torch.configs import get_tiny
     from repro_torch.core import tree
+    from repro_torch.draws import Stream
     from repro_torch.launch.explore import _kvstore_state
+    from repro_torch.models import init_params
+
+    def made_on(device):
+        out = []
+        for arch in ("llama3-8b", "kvstore-demo"):
+            params, keys = _kvstore_state(get_tiny(arch), SEED, device)
+            out += [*tree.leaves(params), keys]
+        for arch in FAMILY_ARCHS:
+            out += tree.leaves(init_params(get_tiny(arch), seed=SEED,
+                                           device=device))
+        out.append(Stream(SEED, device).normal((NORMAL_DRAWS,), 1.0,
+                                               torch.float32))
+        return out
+
     unequal = total = 0
-    for arch in ("llama3-8b", "kvstore-demo"):
-        cfg = get_tiny(arch)
-        card, cpu = ([*tree.leaves(params), keys] for params, keys in (
-            _kvstore_state(cfg, SEED, dev), _kvstore_state(cfg, SEED, "cpu")))
-        for a, b in zip(card, cpu):
-            a = a.cpu().reshape(a.numel(), -1).view(torch.uint8)
-            b = b.reshape(b.numel(), -1).view(torch.uint8)
-            unequal += int((a != b).any(dim=1).sum())
-            total += a.shape[0]
+    for a, b in zip(made_on(dev), made_on("cpu")):
+        a = a.cpu().reshape(a.numel(), -1).view(torch.uint8)
+        b = b.reshape(b.numel(), -1).view(torch.uint8)
+        unequal += int((a != b).any(dim=1).sum())
+        total += a.shape[0]
     print(f"draws: unequal_elements={unequal} of {total} (tiny llama3-8b "
-          f"and kvstore-demo parameters and kv-store keys, card vs cpu)")
+          f"and kvstore-demo parameters and kv-store keys, the four tiny "
+          f"MoE/hybrid/xLSTM configs' parameters, {NORMAL_DRAWS} normal "
+          f"draws; card vs cpu)")
     if unequal:
         raise AssertionError("the card's draws differ from the CPU's")
 
@@ -2239,14 +2299,13 @@ def _prefilled(cfg, params, prompts, new_tokens: int):
     """The prefill's greedy token and its cache, padded for ``new_tokens``
     decode steps, as ``serve_batch`` starts its loop."""
     from repro_torch.models import init_cache
+    from repro_torch.runtime.serve_loop import _with_headroom
     from repro_torch.runtime.steps import make_prefill_step
     S0 = prompts.shape[1]
     last, cache = make_prefill_step(cfg)(params, {"tokens": prompts})
     full = init_cache(cfg, prompts.shape[0], S0 + new_tokens,
                       device=prompts.device)
-    for k, dst in full.items():
-        dst[:, :, :S0] = cache[k]
-    return torch.argmax(last, dim=-1), full
+    return torch.argmax(last, dim=-1), _with_headroom(cache, full)
 
 
 def _check_decode_logits(cfg, params, prompts) -> None:
@@ -3815,6 +3874,323 @@ def run_examples(dev, by_path: dict) -> None:
                                  "line")
 
 
+# ------------------------------------------------ 12. the other families
+def _family_cfg(arch: str):
+    """The arch's full config, its depth cut where FAMILY_DEPTH says."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in FAMILY_DEPTH:
+        cfg = cfg.replace(n_layers=FAMILY_DEPTH[arch])
+    return cfg
+
+
+def _no_drop(cfg):
+    """``cfg`` at a capacity factor under which no MoE token is dropped."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=FAMILY_NO_DROP))
+
+
+def _leaf_bytes(tree_) -> int:
+    from repro_torch.core import tree
+    return sum(t.numel() * t.element_size() for t in tree.leaves(tree_))
+
+
+def _tiny_run(cfg, device, campaign: bool):
+    """Tiny ``cfg`` on one device from one seed: (parameters, forward
+    logits, aux, FAMILY_DECODE_STEPS decode logits, serve_batch tokens and
+    report, the campaign's outcomes when ``campaign``), results on the
+    CPU."""
+    import dataclasses
+    from repro_torch.core import DESIGN_POINTS, characterize
+    from repro_torch.draws import Stream
+    from repro_torch.models import decode_step, forward, init_cache, \
+        init_params
+    from repro_torch.runtime.serve_loop import serve_batch
+    p = init_params(cfg, seed=SEED, device=device)
+    toks = Stream(SEED + 2, device).randint(
+        cfg.vocab_size, (2, FAMILY_TINY_TOKENS))
+    logits, aux, _ = forward(p, {"tokens": toks}, cfg)
+    cache = init_cache(cfg, 2, FAMILY_DECODE_STEPS, device=device)
+    dec = []
+    for t in range(FAMILY_DECODE_STEPS):
+        lg, cache = decode_step(p, toks[:, t], t, cache, cfg)
+        dec.append(lg)
+    prompts = Stream(SEED + 1, device).randint(cfg.vocab_size, (4, 16))
+    policy = dataclasses.replace(DESIGN_POINTS["detect_recover"](),
+                                 scrub_interval=4)
+    gen, rep = serve_batch(cfg, p, prompts, 12, policy=policy,
+                           error_rate_per_token=SERVE_ERROR_RATE,
+                           seed=SERVE_SEED)
+    outcomes = None
+    if campaign:
+        ev = characterize.lm_eval_fn(cfg, {"tokens": toks}, forward)
+        outcomes = [(path, kind, o.value) for path, kind, o in
+                    characterize.run_campaign(
+                        ev, p, n_trials=FAMILY_TINY_TRIALS,
+                        seed=SEED).trials]
+    return (p, logits.float().cpu(), float(aux), torch.stack(dec, 1).cpu(),
+            gen.cpu(), rep, outcomes)
+
+
+def families_card_vs_cpu(dev, by_path: dict) -> None:
+    """(a) The four tiny configs in float32 compute, on the card and on the
+    CPU from one seed: parameters equal bit for bit; ``forward`` logits,
+    ``aux`` and FAMILY_DECODE_STEPS ``decode_step`` logits within
+    FAMILY_TINY_REL x max|value|; ``serve_batch`` tokens and report equal
+    under detect_recover with strikes; tiny granite's campaign
+    (FAMILY_TINY_TRIALS soft and as many hard trials) equal trial by
+    trial."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.core import tree
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    for arch in FAMILY_ARCHS:
+        cfg = get_tiny(arch).replace(compute_dtype="float32")
+        campaign = arch == FAMILY_ONLINE_ARCH
+        card = _tiny_run(cfg, dev, campaign)
+        cpu = _tiny_run(cfg, torch.device("cpu"), campaign)
+        unequal = sum(
+            not torch.equal(_bytes(a.cpu()), _bytes(b))
+            for a, b in zip(tree.leaves(card[0]), tree.leaves(cpu[0])))
+        lg = float((card[1] - cpu[1]).abs().max()) / float(
+            cpu[1].abs().max())
+        dec = float((card[3] - cpu[3]).abs().max()) / float(
+            cpu[3].abs().max())
+        aux = abs(card[2] - cpu[2]) / max(abs(cpu[2]), 1e-30)
+        same_tokens = torch.equal(card[4], cpu[4])
+        same_report = card[5] == cpu[5]
+        same_trials = card[6] == cpu[6]
+        trials = "" if cpu[6] is None else (
+            f" campaign trials={len(cpu[6])} outcomes equal trial by trial="
+            f"{same_trials} (card: " + json.dumps(
+                {o: sum(t[2] == o for t in card[6])
+                 for o in sorted({t[2] for t in card[6]})}) + ")")
+        print(f"families tiny {arch} card vs cpu (float32): unequal "
+              f"parameter leaves={unequal} of {len(tree.leaves(cpu[0]))} "
+              f"forward max|diff|/max|logit|={lg:.3g} aux rel diff={aux:.3g}"
+              f" ({card[2]:.6g}) decode {FAMILY_DECODE_STEPS} steps max|diff|"
+              f"/max|logit|={dec:.3g} serve_batch tokens equal={same_tokens}"
+              f" report equal={same_report} (injected={card[5].injected} "
+              f"detected={card[5].scrub_detected}){trials}")
+        if unequal or lg > FAMILY_TINY_REL or dec > FAMILY_TINY_REL or \
+                aux > FAMILY_TINY_REL or not same_tokens or \
+                not same_report or not same_trials:
+            raise AssertionError(f"families tiny {arch}: card and CPU differ")
+    _path_launches("families_tiny", {"bitflip", "parity_encode",
+                                     "parity_check"}, by_path)
+
+
+def families_serve(dev, by_path: dict) -> None:
+    """(b) ``serve_batch`` on the four configs at full width
+    (deepseek-moe-16b's depth cut), SERVE_BATCH prompts of SERVE_PROMPT
+    tokens and SERVE_NEW new tokens under FAMILY_POLICIES with phase 8's
+    strikes; decode against ``forward`` first (at a no-drop capacity for
+    MoE). Under typical_server every single-bit strike must be corrected
+    and every double-bit one flagged. Each arch's launches are a path."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import DESIGN_POINTS, tree
+    from repro_torch.draws import Stream
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.runtime.serve_loop import serve_batch
+    last_scrub = (SERVE_NEW - 1) // SERVE_SCRUB_INTERVAL \
+        * SERVE_SCRUB_INTERVAL
+    n_tok = SERVE_BATCH * SERVE_NEW
+    for arch in FAMILY_ARCHS:
+        cfg = _family_cfg(arch)
+        params = init_params(cfg, seed=SEED, device=dev)
+        prompts = Stream(SEED + 1, dev).randint(cfg.vocab_size,
+                                                (SERVE_BATCH, SERVE_PROMPT))
+        cache_bytes = _leaf_bytes(init_cache(
+            cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, device="meta"))
+        n_params = sum(t.numel() for t in tree.leaves(params))
+        cut = (f" depth cut {get_config(arch).n_layers}->{cfg.n_layers}"
+               if arch in FAMILY_DEPTH else " nothing cut")
+        print(f"families serve {arch}: family={cfg.family} layers="
+              f"{cfg.n_layers}{cut} d_model={cfg.d_model} params={n_params}"
+              f" bytes={_leaf_bytes(params)} ({cfg.param_dtype}) cache_bytes"
+              f"={cache_bytes} (batch {SERVE_BATCH} x "
+              f"{SERVE_PROMPT + SERVE_NEW}) compute={cfg.compute_dtype}")
+        _check_decode_logits(_no_drop(cfg), params, prompts)
+        _build.reset_launches()
+        for name in FAMILY_POLICIES:
+            policy = dataclasses.replace(
+                DESIGN_POINTS[name](), scrub_interval=SERVE_SCRUB_INTERVAL)
+            torch.cuda.reset_peak_memory_stats()
+            with _ServeTimer() as timer:
+                (toks, rep), wall_ms = _timed(lambda: serve_batch(
+                    cfg, params, prompts, SERVE_NEW, policy=policy,
+                    error_rate_per_token=SERVE_ERROR_RATE, seed=SERVE_SEED))
+            peak = torch.cuda.max_memory_allocated()
+            strikes = _serve_strikes(timer.spec, policy, SERVE_NEW,
+                                     SERVE_ERROR_RATE, SERVE_SEED)
+            if rep.injected != len(strikes) or not strikes:
+                raise AssertionError(f"families serve {arch} {name}: "
+                                     f"injected {rep.injected}, the stream "
+                                     f"draws {len(strikes)}")
+            if toks.shape != (SERVE_BATCH, SERVE_NEW) or \
+                    int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+                raise AssertionError(f"families serve {arch} {name}: "
+                                     f"tokens {tuple(toks.shape)} out of "
+                                     "range")
+            expect = ""
+            if name == "typical_server":
+                single, double = _secded_expected(strikes, last_scrub)
+                if (rep.scrub_corrected, rep.scrub_detected) != \
+                        (single, double):
+                    raise AssertionError(
+                        f"families serve {arch} typical_server: corrected "
+                        f"{rep.scrub_corrected} detected "
+                        f"{rep.scrub_detected}, struck before the last "
+                        f"scrub: {single} single-bit, {double} double-bit "
+                        "words")
+                expect = (f" (expected: {single} single-bit, {double} "
+                          f"double-bit words struck by step {last_scrub})")
+            tok = sorted(timer.ms["token"])
+            print(f"families serve {arch} {name}: prefill_ms="
+                  f"{timer.ms['prefill'][0]:.2f} ms_per_token_median="
+                  f"{tok[len(tok) // 2]:.3f} tokens_per_s="
+                  f"{n_tok / wall_ms * 1e3:.1f} (wall_ms={wall_ms:.1f}, "
+                  f"prefill and protect included) decode_tokens_per_s="
+                  f"{SERVE_BATCH / tok[len(tok) // 2] * 1e3:.1f} strikes_"
+                  f"drawn={len(strikes)} injected={rep.injected} corrected="
+                  f"{rep.scrub_corrected} flagged={rep.scrub_detected}"
+                  f"{expect} scrubs={len(timer.ms['scrub'])} scrub_ms_mean="
+                  f"{np.mean(timer.ms['scrub'] or [0]):.2f} sidecar_overhead"
+                  f"={rep.sidecar_overhead:.4f} peak_bytes={peak}")
+        _path_launches(f"families_serve_{arch}", SERVE_KERNELS, by_path)
+        del params, prompts
+        torch.cuda.empty_cache()
+
+
+def families_online(dev, by_path: dict) -> None:
+    """(c) ``OnlineEngine`` on granite-moe-3b-a800m whole with phase 10's
+    plane, trace and storm under detect_recover + parity_r (a golden and a
+    storm pass, model clock, ``debug_invariants``; each pass a path), then
+    a FAMILY_CHECK_REQUESTS-request golden pass at a no-drop capacity
+    whose first PAGED_CHECK_STEPS decode steps are held against
+    ``decode_step`` on each active slot's gathered pages."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_params
+    from repro_torch.serve import engine as engine_mod, incorrect_rate
+    cfg = _family_cfg(FAMILY_ONLINE_ARCH)
+    params = init_params(cfg, seed=SEED, device=dev)
+    tc, trace = _online_traffic(cfg)
+    golden = None
+    for storm in (0, ONLINE_STORM):
+        eng = _online_engine(cfg, params, tc, "detect_recover", "parity_r")
+        need = _needed_kernels(eng.param_domain) | \
+            _needed_kernels(eng.kv_domain)
+        if not storm:
+            need.discard("bitflip")
+            pool = eng.cache.pool_k
+            print(f"families online {FAMILY_ONLINE_ARCH}: pages="
+                  f"{eng.cache.n_pages} pool_bytes=2x"
+                  f"{pool.numel() * pool.element_size()} requests="
+                  f"{ONLINE_REQUESTS} bursty {ONLINE_RATE}/s seed "
+                  f"{ONLINE_SEED} storm={ONLINE_STORM} capacity_factor="
+                  f"{cfg.moe.capacity_factor}")
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        (rep, resp), ms = _timed(lambda: eng.run(trace, storm_errors=storm))
+        name = f"families_online_{'storm' if storm else 'golden'}"
+        _path_launches(name, need, by_path)
+        c = rep.counters
+        if rep.completed + rep.shed != rep.n_requests:
+            raise AssertionError(f"{name}: {rep.completed} completed + "
+                                 f"{rep.shed} shed of {rep.n_requests}")
+        if storm:
+            if c["injected_params"] + c["injected_kv"] != storm:
+                raise AssertionError(f"{name}: injected {c}")
+            rep.incorrect_rate = incorrect_rate(golden, resp)
+        else:
+            golden = resp
+        bar = "PASS" if rep.availability >= AVAILABILITY_BAR else "FAIL"
+        print(f"{name}: wall_s={ms / 1e3:.2f} {rep.summary()} "
+              f"availability_vs_99.90%={bar} counters={json.dumps(c)} "
+              f"peak_bytes={torch.cuda.max_memory_allocated()}")
+        del eng
+    cfg16 = _no_drop(cfg)
+    tc16, trace16 = _online_traffic(cfg16, n_requests=FAMILY_CHECK_REQUESTS)
+    eng = _online_engine(cfg16, params, tc16, "detect_recover", "parity_r")
+    checks = []
+    real, checked = _paged_logit_check(cfg16, checks)
+    engine_mod.paged_decode_logits = checked
+    try:
+        rep, _ = eng.run(trace16, storm_errors=0)
+    finally:
+        engine_mod.paged_decode_logits = real
+    print(f"families online {FAMILY_ONLINE_ARCH} capacity_factor="
+          f"{FAMILY_NO_DROP}: {rep.summary()}")
+    _print_paged_check(checks)
+    if not all(a for _, _, _, a in checks):
+        raise AssertionError("families online: paged and contiguous decode "
+                             "disagree on a clear token")
+
+
+def families_campaign(dev, by_path: dict) -> None:
+    """(d) The Fig. 2 campaign at full width on FAMILY_REGIONS' configs:
+    the query the greedy tokens of ``lm_batch(cfg, CAMPAIGN_BATCH,
+    CAMPAIGN_SEQ, SEED)``, after phase 7's determinism check;
+    FAMILY_REGION_TRIALS single-error soft trials in each region (one
+    ``run_campaign`` a region), masked / incorrect / crash shares
+    printed. Each config's launches are a path."""
+    from repro_torch.core import Outcome, characterize, lm_eval_fn
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import forward, init_params
+    for arch, regions in FAMILY_REGIONS.items():
+        cfg = _family_cfg(arch)
+        params = init_params(cfg, seed=SEED, device=dev)
+        batch = lm_batch(cfg, CAMPAIGN_BATCH, CAMPAIGN_SEQ, SEED,
+                         device=dev)
+        ev = lm_eval_fn(cfg, batch, forward)
+        name = f"families_campaign_{arch}"
+        dom, _, unwrap = characterize._campaign_domain(params, "params")
+        _check_query(name, ev, dom, unwrap)
+        _build.reset_launches()
+        for region in regions:
+            res, ms = _timed(lambda: characterize.run_campaign(
+                ev, dom, n_trials=FAMILY_REGION_TRIALS, seed=SEED,
+                kinds=("soft",), region_filter=lambda r: r == region))
+            n = len(res.trials)
+            masked = sum(o in (Outcome.MASKED_OVERWRITE, Outcome.MASKED_LOGIC)
+                         for _, _, o in res.trials)
+            wrong = sum(o is Outcome.INCORRECT for _, _, o in res.trials)
+            crash = sum(o is Outcome.CRASH for _, _, o in res.trials)
+            if n != FAMILY_REGION_TRIALS or \
+                    {dom.spec.by_path[p].region for p, _, _ in
+                     res.trials} != {region}:
+                raise AssertionError(f"{name}: {n} trials outside {region}")
+            print(f"{name}: region={region} soft trials={n} masked="
+                  f"{masked / n:.4f} incorrect={wrong / n:.4f} crash="
+                  f"{crash / n:.4f} wall_s={ms / 1e3:.2f}")
+        _path_launches(name, {"bitflip"}, by_path)
+        del dom, params
+        torch.cuda.empty_cache()
+
+
+def run_families(dev, by_path: dict) -> None:
+    """Phase 12 (a)-(d): each part runs, and the phase fails after the last
+    if any part failed its checks."""
+    print(f"families: {card_line()}")
+    failed = []
+    for part in (families_card_vs_cpu, families_serve, families_online,
+                 families_campaign):
+        try:
+            part(dev, by_path)
+        except AssertionError as e:
+            print(f"FAILED {part.__name__}: {e}")
+            failed.append(part.__name__)
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"phase 12 parts failed: {failed}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3871,6 +4247,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("11_sharded", run_sharded, dev, by_path)
     phase("11_examples", run_examples, dev, by_path)
+    phase("12_families", run_families, dev, by_path)
     print(f"phase_s={json.dumps(phase_s)}")
     print(f"peak_memory_bytes_run={torch.cuda.max_memory_allocated()}")
     print(f"wall_s={time.perf_counter() - t0:.1f}")

@@ -1,16 +1,51 @@
 """Configuration of the port: copies of ``repro.configs.base``'s
-``ModelConfig``, ``ShapeSpec`` and ``TrainConfig``.
+``MoEConfig``, ``SSMConfig``, ``XLSTMConfig``, ``ModelConfig``,
+``ShapeSpec`` and ``TrainConfig``.
 
 The port keeps its own copy so that it imports nothing of the JAX package.
-The sub-configurations of the other families (MoE, Mamba2, xLSTM) come
-with the slices that port those families; until then their fields hold
-``None``.
+The sub-configurations of the MoE, hybrid (Mamba2) and xLSTM families are
+the reference's, defaults included; the audio and vision frontends and the
+reference's sharding knobs (``MoEConfig.dispatch``'s ``"a2a"``,
+``shard_hints``) are carried but not run (ROADMAP.md, queue 1, item 12).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration."""
+
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0            # always-on shared experts (DeepSeekMoE)
+    router_aux_weight: float = 0.01
+    capacity_factor: float = 1.25  # used by the dropping dispatch path
+    dispatch: str = "dense"      # "dense" (einsum masking) | "a2a" (EP all-to-all)
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) mixer configuration."""
+
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64           # SSD head dim (P); n_ssm_heads = expand*d_model/head_dim
+    chunk: int = 256             # chunk length for the chunked SSD scan
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block layout (mLSTM-dominant with periodic sLSTM)."""
+
+    slstm_every: int = 8         # one sLSTM block per this many blocks (xLSTM[7:1])
+    chunk: int = 256             # chunk length for the chunked mLSTM scan
+    expand: int = 2              # mLSTM up-projection factor
 
 
 @dataclass(frozen=True)
@@ -32,9 +67,9 @@ class ModelConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    moe: Optional[Any] = None
-    ssm: Optional[Any] = None
-    xlstm: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
     attn_every: int = 0          # hybrid: shared attn block every k mixer layers
     frontend: str = "none"       # none | audio_frames | vision_patches
     n_patches: int = 0           # vlm: image patch embeddings prepended to text
@@ -46,6 +81,24 @@ class ModelConfig:
     @property
     def head_dim(self) -> int:
         return self.d_head if self.d_head else self.d_model // self.n_heads
+
+    @property
+    def has_attention(self) -> bool:
+        return self.family in ("dense", "moe", "audio", "vlm") or self.attn_every > 0
+
+    @property
+    def has_kv_cache(self) -> bool:
+        # encoder-only archs never decode; pure-SSM archs use recurrent state.
+        return self.has_attention and self.causal
+
+    @property
+    def is_decoder(self) -> bool:
+        return self.causal
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if sequence mixing is sub-quadratic (SSM / hybrid / linear attn)."""
+        return self.family in ("hybrid", "ssm")
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,6 +1,8 @@
 """Architecture registry of the port: ``get_config(arch)`` returns the full
 config, ``get_tiny(arch)`` the reduced test config of the same family.
-Only the architectures whose families the port runs are listed."""
+The port lists the architectures whose families and frontends it runs:
+dense, MoE, hybrid and xLSTM on tokens; the audio and vision ones and the
+72-405 B dense configs wait for ROADMAP.md, queue 1, item 12."""
 from __future__ import annotations
 
 import importlib
@@ -10,7 +12,11 @@ from repro_torch.configs.base import ModelConfig
 
 # arch id -> module name under repro_torch.configs
 _MODULES: Dict[str, str] = {
+    "zamba2-2.7b": "zamba2_2p7b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "deepseek-moe-16b": "deepseek_moe_16b",
     "llama3-8b": "llama3_8b",
+    "xlstm-350m": "xlstm_350m",
     "kvstore-demo": "kvstore_demo",       # Memcached-analogue workload
     "lm-100m": "lm_100m",                 # end-to-end trainable ~100M example
 }

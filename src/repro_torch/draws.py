@@ -17,6 +17,14 @@ are the same bit for bit too.
   product and one sum, each rounded the same way on either device. The
   result is within 1e-7 of the exact inverse CDF (float32's rounding of
   the table; the interpolation itself adds 2e-8).
+- Normal (untruncated): the same 24 random bits and the same read of a
+  table, of the standard normal's inverse CDF over the whole mass
+  (``torch.special.ndtri`` in float64 on the CPU, kept in float32). The
+  outer ``_TAIL_CELLS`` cells at either end, whose curvature the
+  interpolation would not follow, read a second table that holds the
+  exact value of each of their 24-bit points instead. Values lie within
+  +-5.42 (the midpoint of the outermost 24-bit cell) and within 8e-7 of
+  the exact inverse CDF.
 
 ``Stream`` hands out consecutive counter ranges, so successive draws of one
 seed never reuse a counter.
@@ -33,6 +41,7 @@ _M32 = 0xFFFFFFFF
 _CHUNK = 1 << 25               # elements hashed at a time: bounds temporaries
 _TABLE_BITS = 16               # inverse-CDF table: 2**16 intervals
 _FRAC_BITS = 8                 # interpolation bits below the table index
+_TAIL_CELLS = 256              # normal: table cells at either end read exactly
 
 
 def _mul32(x, c: int):
@@ -82,6 +91,24 @@ def _inverse_cdf() -> Tuple[torch.Tensor, torch.Tensor]:
     return z, z[1:] - z[:-1]
 
 
+@functools.lru_cache(maxsize=None)
+def _normal_tables() -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(values, steps, tail) float32 on the CPU: the standard normal's
+    inverse CDF at 2**16 + 1 evenly spaced points of its mass (the two
+    infinite ends set to 0: only the tail table reads those cells), the
+    differences of neighbours, and the exact values at the midpoints of
+    the 24-bit cells of the lowest ``_TAIL_CELLS`` table cells (the highest
+    are their negatives, by symmetry)."""
+    n = 1 << _TABLE_BITS
+    s = torch.arange(n + 1, dtype=torch.float64) / n
+    z = torch.special.ndtri(s)
+    z[0] = z[-1] = 0.0
+    z = z.to(torch.float32)
+    k = torch.arange(_TAIL_CELLS << _FRAC_BITS, dtype=torch.float64)
+    tail = torch.special.ndtri((k + 0.5) / (1 << 24)).to(torch.float32)
+    return z, z[1:] - z[:-1], tail
+
+
 class Stream:
     """Draws of one seed, each from the next unused counters."""
 
@@ -109,6 +136,28 @@ class Stream:
             frac = ((k & ((1 << _FRAC_BITS) - 1)).to(torch.float32) + 0.5) \
                 * (1.0 / (1 << _FRAC_BITS))
             z = values[idx] + steps[idx] * frac
+            out[a:a + _CHUNK] = (z * scale).to(dtype)
+        return out.reshape(shape)
+
+    def normal(self, shape, scale: float,
+               dtype: torch.dtype) -> torch.Tensor:
+        """Standard normal times ``scale`` (the reference's
+        ``jax.random.normal`` initialisations), computed in float32 and
+        cast to ``dtype``."""
+        n = math.prod(shape)
+        values, steps, tail = (t.to(self.device) for t in _normal_tables())
+        n_tail = tail.numel()
+        top = (1 << 24) - 1
+        out = torch.empty(n, dtype=dtype, device=self.device)
+        for a in range(0, n, _CHUNK):
+            k = self.bits32(min(_CHUNK, n - a)) >> 8        # 24 random bits
+            idx = k >> _FRAC_BITS
+            frac = ((k & ((1 << _FRAC_BITS) - 1)).to(torch.float32) + 0.5) \
+                * (1.0 / (1 << _FRAC_BITS))
+            z = values[idx] + steps[idx] * frac
+            low, high = k < n_tail, k > top - n_tail
+            z = torch.where(low, tail[k.clamp(max=n_tail - 1)], z)
+            z = torch.where(high, -tail[(top - k).clamp(max=n_tail - 1)], z)
             out[a:a + _CHUNK] = (z * scale).to(dtype)
         return out.reshape(shape)
 

@@ -19,7 +19,26 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import apply_rope, dtype_of
+from repro_torch.draws import Stream
+from repro_torch.models.common import apply_rope, dense_init, dtype_of
+
+
+def attn_init(draws: Stream, cfg: ModelConfig, lead: tuple = ()):
+    """Attention weights stacked on ``lead``: ``wq``, ``wk``, ``wv``,
+    ``wo`` drawn in that order (``wo`` depth-scaled), zero biases under
+    ``qkv_bias``."""
+    dh, H, K, D = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+    pdt = dtype_of(cfg.param_dtype)
+    p = {"wq": dense_init(draws, lead, D, H * dh, pdt),
+         "wk": dense_init(draws, lead, D, K * dh, pdt),
+         "wv": dense_init(draws, lead, D, K * dh, pdt),
+         "wo": dense_init(draws, lead, H * dh, D, pdt,
+                          scale=1.0 / math.sqrt(H * dh * 2 * cfg.n_layers))}
+    if cfg.qkv_bias:
+        for name, n in (("bq", H * dh), ("bk", K * dh), ("bv", K * dh)):
+            p[name] = torch.zeros(tuple(lead) + (n,), dtype=pdt,
+                                  device=draws.device)
+    return p
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,

@@ -3,12 +3,18 @@
 Counterpart of ``repro.models.common``: the same math, in PyTorch. RMSNorm
 and RoPE compute in float32 and cast back to the input dtype, as the
 reference does. ``cross_entropy`` and ``cross_entropy_sharded`` are the
-training loss, in float32.
+training loss, in float32. ``dense_init`` draws a projection from
+``repro_torch.draws``, stacked on leading axes: each stacked weight is one
+draw, where the reference ``vmap``s one draw a layer.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+
+from repro_torch.draws import Stream
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -16,6 +22,15 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def dense_init(draws: Stream, lead: tuple, d_in: int, d_out: int,
+               dtype: torch.dtype, scale: float | None = None
+               ) -> torch.Tensor:
+    """Truncated-normal fan-in init of a ``lead + (d_in, d_out)`` stack."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(d_in)
+    return draws.truncated_normal(tuple(lead) + (d_in, d_out), scale, dtype)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:

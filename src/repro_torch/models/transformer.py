@@ -1,29 +1,40 @@
-"""The port's transformer, dense family: ``init_params``, ``init_cache``,
-``forward``, ``loss_fn`` and ``decode_step``.
+"""The port's model: ``init_params``, ``init_cache``, ``forward``,
+``loss_fn`` and ``decode_step`` for the dense, MoE, hybrid and xLSTM
+families on tokens.
 
-Counterpart of ``repro.models.transformer``: the same tree, key paths,
-shapes and dtypes, with per-layer weights stacked on a leading layer axis.
+Counterpart of ``repro.models.transformer``: the same trees, key paths,
+shapes and dtypes, with per-layer weights stacked on leading axes.
+
+  dense | moe  attention + (MLP | MoE) blocks; ``forward``'s ``aux`` sums
+               the MoE layers' load-balancing losses.
+  hybrid       (zamba2) Mamba2 mixer layers; one *shared* attention + MLP
+               block (one weight set) runs before every ``attn_every``-layer
+               group, with a KV cache of its own per group.
+  ssm          (xlstm) groups of ``slstm_every - 1`` mLSTM blocks and one
+               sLSTM block, stacked ``blocks_m`` (G, K-1, ...) and
+               ``blocks_s`` (G, ...).
+
 Values come from ``repro_torch.draws`` seeded with ``seed``: truncated
 normal on [-2, 2] times the reference's scales (fan-in for projections,
-0.02 for the embedding, depth-scaled output projections), the same bit for
-bit on the card and on the CPU. They cannot equal ``jax.random``'s draws;
-tests that compare the two packages carry the reference's state across
-with ``convert``.
+0.02 for the embedding and the router, depth-scaled output projections),
+normal for the reference's ``jax.random.normal`` draws (the convs, the
+sLSTM's recurrent weights), the same bit for bit on the card and on the
+CPU. They cannot equal ``jax.random``'s draws; tests that compare the two
+packages carry the reference's state across with ``convert``.
 
-``forward`` is the reference's full-sequence forward, ``loss_fn`` its
-training loss (cross-entropy on ``forward``'s logits) and ``decode_step``
-its one-token decode against the cache, for the dense family and the
-token frontend: the reference's ``lax.scan`` over the stacked layer axis
-becomes a Python loop over layer slices (views, no copies; under autograd
-one ``unbind`` a leaf, whose backward stacks the layer gradients once).
-``remat`` wraps each layer as the reference's ``jax.checkpoint`` does:
-``"full"`` saves nothing of a layer, ``"dots"`` saves its matrix
-products. The other families and frontends wait for ROADMAP.md, queue 1,
-item 12.
+The reference's ``lax.scan`` over stacked layers becomes a Python loop
+over layer slices (views, no copies; under autograd one ``unbind`` a
+leaf, whose backward stacks the layer gradients once). ``remat`` wraps
+each layer (each mixer layer of hybrid and xLSTM, as the reference does)
+as the reference's ``jax.checkpoint`` does: ``"full"`` saves nothing of a
+layer, ``"dots"`` saves its matrix products. ``decode_step`` writes the
+caches and recurrent states it is given in place and returns them.
+
+The audio and vision frontends (families ``audio`` and ``vlm``) wait for
+ROADMAP.md, queue 1, item 12, as do the reference's sharding hints.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Callable, Dict
 
 import torch
@@ -32,74 +43,105 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.draws import Stream
-from repro_torch.models.attention import attn_apply, attn_decode
+from repro_torch.models import mamba2, xlstm
+from repro_torch.models.attention import attn_apply, attn_decode, attn_init
 from repro_torch.models.common import (cross_entropy, cross_entropy_sharded,
-                                       dtype_of, rmsnorm)
-from repro_torch.models.mlp import mlp_apply
+                                       dense_init, dtype_of, rmsnorm)
+from repro_torch.models.mlp import mlp_apply, mlp_init, moe_apply, moe_init
 
 Params = Dict[str, Any]
+_ATTN_FAMILIES = ("dense", "moe")
 
-def _dense_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.frontend != "none":
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.frontend != "none" or cfg.family in ("audio", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} with frontend {cfg.frontend!r} is not "
             "ported yet (ROADMAP.md, queue 1, item 12); the port runs the "
-            "dense family on tokens")
+            "dense, moe, hybrid and ssm families on tokens")
+    if cfg.family not in _ATTN_FAMILIES + ("hybrid", "ssm"):
+        raise ValueError(cfg.family)
 
 
+def _ssm_groups(cfg: ModelConfig):
+    """(G, K): xLSTM groups of K blocks, the last of each an sLSTM."""
+    K = cfg.xlstm.slstm_every
+    if cfg.n_layers % K:
+        raise ValueError(f"n_layers={cfg.n_layers} is not a multiple of "
+                         f"slstm_every={K}")
+    return cfg.n_layers // K, K
+
+
+# ========================================================= initialization
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
-    """Random parameters of a dense model, on ``device`` (the card unless
-    given)."""
-    _dense_family(cfg)
+    """Random parameters on ``device`` (the card unless given). The blocks
+    are drawn first, then the embedding, then the head."""
+    _check_ported(cfg)
     dev = resolve_device(device)
     draws = Stream(seed, dev)
     pdt = dtype_of(cfg.param_dtype)
-    L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
-    dh, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-
-    def normal(shape, scale: float) -> torch.Tensor:
-        return draws.truncated_normal(shape, scale, pdt)
-
-    def dense(*shape, scale=None) -> torch.Tensor:
-        return normal(shape, 1.0 / math.sqrt(shape[-2]) if scale is None
-                      else scale)
+    L, D = cfg.n_layers, cfg.d_model
 
     def ones(*shape) -> torch.Tensor:
         return torch.ones(shape, dtype=pdt, device=dev)
 
-    attn = {"wq": dense(L, D, H * dh), "wk": dense(L, D, K * dh),
-            "wv": dense(L, D, K * dh),
-            "wo": dense(L, H * dh, D,
-                        scale=1.0 / math.sqrt(H * dh * 2 * L))}
-    if cfg.qkv_bias:
-        attn.update(bq=torch.zeros((L, H * dh), dtype=pdt, device=dev),
-                    bk=torch.zeros((L, K * dh), dtype=pdt, device=dev),
-                    bv=torch.zeros((L, K * dh), dtype=pdt, device=dev))
-    out_scale = 1.0 / math.sqrt(F * 2 * L)
-    mlp = {"wi": dense(L, D, F), "wo": dense(L, F, D, scale=out_scale)}
-    if cfg.act == "swiglu":
-        mlp["wg"] = dense(L, D, F)
-    p: Params = {
-        "embed": normal((V, D), 0.02),
-        "blocks": {"norm1": ones(L, D), "attn": attn, "norm2": ones(L, D),
-                   "mlp": mlp},
-        "final_norm": ones(D),
-    }
+    p: Params = {}
+    if cfg.family in _ATTN_FAMILIES:
+        blocks = {"norm1": ones(L, D), "attn": attn_init(draws, cfg, (L,)),
+                  "norm2": ones(L, D)}
+        if cfg.family == "moe":
+            blocks["moe"] = moe_init(draws, cfg, (L,))
+        else:
+            blocks["mlp"] = mlp_init(draws, cfg, (L,))
+        p["blocks"] = blocks
+    elif cfg.family == "hybrid":
+        p["blocks"] = {"norm": ones(L, D),
+                       "mamba": mamba2.mamba_init(draws, cfg, (L,))}
+        p["shared"] = {"norm1": ones(D), "attn": attn_init(draws, cfg),
+                       "norm2": ones(D), "mlp": mlp_init(draws, cfg)}
+    else:
+        G, K = _ssm_groups(cfg)
+        p["blocks_m"] = {"norm": ones(G, K - 1, D),
+                         "mlstm": xlstm.mlstm_init(draws, cfg, (G, K - 1))}
+        p["blocks_s"] = {"norm": ones(G, D),
+                         "slstm": xlstm.slstm_init(draws, cfg, (G,))}
+    p["embed"] = draws.truncated_normal((cfg.vocab_size, D), 0.02, pdt)
+    p["final_norm"] = ones(D)
     if not cfg.tie_embeddings:
-        p["head"] = dense(D, V)
+        p["head"] = dense_init(draws, (), D, cfg.vocab_size, pdt)
     return p
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device=None) -> Dict[str, torch.Tensor]:
-    """Decode cache sized for ``max_seq`` positions, zero-filled, on
-    ``device`` (the card unless given)."""
-    _dense_family(cfg)
+    """Decode cache sized for ``max_seq`` positions, on ``device`` (the
+    card unless given): the KV caches zero-filled, the recurrent states at
+    their initial values."""
+    _check_ported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     cdt = dtype_of(cfg.compute_dtype)
-    return {"k": torch.zeros(shape, dtype=cdt, device=dev),
-            "v": torch.zeros(shape, dtype=cdt, device=dev)}
+    kv = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+
+    def zeros(*shape, dtype=cdt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def rep(lead: tuple, a: torch.Tensor) -> torch.Tensor:
+        return a.expand(lead + a.shape).contiguous()
+
+    if cfg.family in _ATTN_FAMILIES:
+        return {"k": zeros(cfg.n_layers, *kv), "v": zeros(cfg.n_layers, *kv)}
+    if cfg.family == "hybrid":
+        G = cfg.n_layers // cfg.attn_every
+        conv, ssm_st = mamba2.mamba_state_init(cfg, batch, dev)
+        return {"mamba_conv": rep((cfg.n_layers,), conv),
+                "mamba_ssm": rep((cfg.n_layers,), ssm_st),
+                "attn_k": zeros(G, *kv), "attn_v": zeros(G, *kv)}
+    G, K = _ssm_groups(cfg)
+    conv, c_st = xlstm.mlstm_state_init(cfg, batch, dev)
+    s_c, s_n, s_h, s_m = xlstm.slstm_state_init(cfg, batch, dev)
+    return {"m_conv": rep((G, K - 1), conv), "m_c": rep((G, K - 1), c_st),
+            "s_c": rep((G,), s_c), "s_n": rep((G,), s_n),
+            "s_h": rep((G,), s_h), "s_m": rep((G,), s_m)}
 
 
 # ================================================================ forward
@@ -159,34 +201,123 @@ def _maybe_remat(fn: Callable, remat: str) -> Callable:
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)  # "full"
 
 
+def _maybe_remat(fn: Callable, remat: str) -> Callable:
+    """``fn`` under the activation-checkpoint policy ``remat``."""
+    if remat == "none" or not remat:
+        return fn
+    if remat == "dots":
+        try:
+            from torch.utils.checkpoint import \
+                create_selective_checkpoint_contexts
+        except ImportError as e:
+            raise NotImplementedError(
+                "remat='dots' needs torch.utils.checkpoint's selective "
+                "checkpointing, which this PyTorch lacks (ROADMAP.md, "
+                "queue 1, item 7b)") from e
+
+        def context():
+            return create_selective_checkpoint_contexts(_save_products)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=context)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)  # "full"
+
+
 def forward(p: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             remat: str = "none", return_cache: bool = False):
     """Full-sequence forward. Returns (logits, aux_loss, cache|None); the
-    cache is ``{"k", "v"}`` of shape (L,B,S,K,dh)."""
-    _dense_family(cfg)
+    cache holds ``init_cache``'s leaves, sized to the sequence."""
+    _check_ported(cfg)
     x = _embed_inputs(p, batch, cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
-
-    def body(x, layer):
-        h, (k, v) = attn_apply(
-            layer["attn"], rmsnorm(x, layer["norm1"], cfg.norm_eps), cfg,
-            positions)
-        x = x + h
-        x = x + mlp_apply(
-            layer["mlp"], rmsnorm(x, layer["norm2"], cfg.norm_eps), cfg)
-        return x, k, v
-
-    step = _maybe_remat(body, remat)
-    ks, vs = [], []
-    for layer in _unstack(p["blocks"], cfg.n_layers):
-        x, k, v = step(x, layer)
-        if return_cache:
-            ks.append(k)
-            vs.append(v)
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} \
-        if return_cache else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    eps = cfg.norm_eps
+    cache = None
+
+    if cfg.family in _ATTN_FAMILIES:
+        def body(x, layer):
+            h, (k, v) = attn_apply(layer["attn"],
+                                   rmsnorm(x, layer["norm1"], eps), cfg,
+                                   positions)
+            x = x + h
+            hn = rmsnorm(x, layer["norm2"], eps)
+            if cfg.family == "moe":
+                h, a = moe_apply(layer["moe"], hn, cfg)
+            else:
+                h, a = mlp_apply(layer["mlp"], hn, cfg), None
+            return x + h, a, k, v
+
+        step = _maybe_remat(body, remat)
+        ks, vs = [], []
+        for layer in _unstack(p["blocks"], cfg.n_layers):
+            x, a, k, v = step(x, layer)
+            if a is not None:
+                aux = aux + a
+            if return_cache:
+                ks.append(k)
+                vs.append(v)
+        if return_cache:
+            cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+    elif cfg.family == "hybrid":
+        shared = p["shared"]
+
+        def inner(x, layer):
+            h, (conv, ssm_st) = mamba2.mamba_apply(
+                layer["mamba"], rmsnorm(x, layer["norm"], eps), cfg)
+            return x + h, conv, ssm_st
+
+        step = _maybe_remat(inner, remat)
+        layers = _unstack(p["blocks"], cfg.n_layers)
+        sts = {"mamba_conv": [], "mamba_ssm": [], "attn_k": [],
+               "attn_v": []}
+        for g in range(cfg.n_layers // cfg.attn_every):
+            h, (k, v) = attn_apply(shared["attn"],
+                                   rmsnorm(x, shared["norm1"], eps), cfg,
+                                   positions)
+            x = x + h
+            x = x + mlp_apply(shared["mlp"],
+                              rmsnorm(x, shared["norm2"], eps), cfg)
+            if return_cache:
+                sts["attn_k"].append(k)
+                sts["attn_v"].append(v)
+            for layer in layers[g * cfg.attn_every:
+                                (g + 1) * cfg.attn_every]:
+                x, conv, ssm_st = step(x, layer)
+                if return_cache:
+                    sts["mamba_conv"].append(conv)
+                    sts["mamba_ssm"].append(ssm_st)
+        if return_cache:
+            cache = {name: torch.stack(v) for name, v in sts.items()}
+
+    else:
+        G, K = _ssm_groups(cfg)
+
+        def inner(x, layer):
+            h, (conv, c_st) = xlstm.mlstm_apply(
+                layer["mlstm"], rmsnorm(x, layer["norm"], eps), cfg)
+            return x + h, conv, c_st
+
+        step = _maybe_remat(inner, remat)
+        names = ("m_conv", "m_c", "s_c", "s_n", "s_h", "s_m")
+        sts = {name: [] for name in names}
+        for mgroup, sblock in zip(_unstack(p["blocks_m"], G),
+                                  _unstack(p["blocks_s"], G)):
+            convs, cs = [], []
+            for layer in _unstack(mgroup, K - 1):
+                x, conv, c_st = step(x, layer)
+                convs.append(conv)
+                cs.append(c_st)
+            h, sst = xlstm.slstm_apply(
+                sblock["slstm"], rmsnorm(x, sblock["norm"], eps), cfg)
+            x = x + h
+            if return_cache:
+                for name, v in zip(names, (torch.stack(convs),
+                                           torch.stack(cs)) + tuple(sst)):
+                    sts[name].append(v)
+        if return_cache:
+            cache = {name: torch.stack(v) for name, v in sts.items()}
+
     return _head(p, x, cfg), aux, cache
 
 
@@ -194,7 +325,8 @@ def forward(p: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 def loss_fn(p: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             remat: str = "none"):
     """(loss, {"ce", "aux"}): mean next-token cross-entropy in float32 over
-    ``batch["labels"]`` (masked by ``batch["mask"]`` when given)."""
+    ``batch["labels"]`` (masked by ``batch["mask"]`` when given), plus the
+    MoE aux loss weighted by ``router_aux_weight`` per layer."""
     logits, aux, _ = forward(p, batch, cfg, remat=remat)
     labels = batch["labels"]
     mask = batch.get("mask")
@@ -212,16 +344,61 @@ def decode_step(p: Params, token: torch.Tensor, pos: int,
                 cache: Dict[str, torch.Tensor], cfg: ModelConfig):
     """token: (B,) int; pos: the token's position -> (logits (B,V), cache).
 
-    Each layer writes its new k/v into ``cache`` in place (layer views of
-    the stacked (L,B,Smax,K,dh) tensors), so the returned cache is the one
-    passed in."""
-    _dense_family(cfg)
+    Each layer writes its new k/v, or its new recurrent state, into
+    ``cache`` in place (layer views of the stacked tensors), so the
+    returned cache is the one passed in."""
+    _check_ported(cfg)
     x = p["embed"][token][:, None, :].to(dtype_of(cfg.compute_dtype))
-    for i, layer in enumerate(_unstack(p["blocks"], cfg.n_layers)):
-        h, _, _ = attn_decode(
-            layer["attn"], rmsnorm(x, layer["norm1"], cfg.norm_eps),
-            cache["k"][i], cache["v"][i], pos, cfg)
-        x = x + h
-        x = x + mlp_apply(
-            layer["mlp"], rmsnorm(x, layer["norm2"], cfg.norm_eps), cfg)
+    eps = cfg.norm_eps
+
+    if cfg.family in _ATTN_FAMILIES:
+        for i, layer in enumerate(_unstack(p["blocks"], cfg.n_layers)):
+            h, _, _ = attn_decode(
+                layer["attn"], rmsnorm(x, layer["norm1"], eps),
+                cache["k"][i], cache["v"][i], pos, cfg)
+            x = x + h
+            hn = rmsnorm(x, layer["norm2"], eps)
+            if cfg.family == "moe":
+                h, _ = moe_apply(layer["moe"], hn, cfg)
+            else:
+                h = mlp_apply(layer["mlp"], hn, cfg)
+            x = x + h
+
+    elif cfg.family == "hybrid":
+        shared = p["shared"]
+        layers = _unstack(p["blocks"], cfg.n_layers)
+        for g in range(cfg.n_layers // cfg.attn_every):
+            h, _, _ = attn_decode(
+                shared["attn"], rmsnorm(x, shared["norm1"], eps),
+                cache["attn_k"][g], cache["attn_v"][g], pos, cfg)
+            x = x + h
+            x = x + mlp_apply(shared["mlp"],
+                              rmsnorm(x, shared["norm2"], eps), cfg)
+            for i in range(g * cfg.attn_every, (g + 1) * cfg.attn_every):
+                h, (conv, ssm_st) = mamba2.mamba_decode(
+                    layers[i]["mamba"], rmsnorm(x, layers[i]["norm"], eps),
+                    (cache["mamba_conv"][i], cache["mamba_ssm"][i]), cfg)
+                cache["mamba_conv"][i].copy_(conv)
+                cache["mamba_ssm"][i].copy_(ssm_st)
+                x = x + h
+
+    else:
+        G, K = _ssm_groups(cfg)
+        for g, (mgroup, sblock) in enumerate(zip(
+                _unstack(p["blocks_m"], G), _unstack(p["blocks_s"], G))):
+            for j, layer in enumerate(_unstack(mgroup, K - 1)):
+                h, (conv, c_st) = xlstm.mlstm_decode(
+                    layer["mlstm"], rmsnorm(x, layer["norm"], eps),
+                    (cache["m_conv"][g, j], cache["m_c"][g, j]), cfg)
+                cache["m_conv"][g, j].copy_(conv)
+                cache["m_c"][g, j].copy_(c_st)
+                x = x + h
+            names = ("s_c", "s_n", "s_h", "s_m")
+            h, sst = xlstm.slstm_decode(
+                sblock["slstm"], rmsnorm(x, sblock["norm"], eps),
+                tuple(cache[n][g] for n in names), cfg)
+            for n, v in zip(names, sst):
+                cache[n][g].copy_(v)
+            x = x + h
+
     return _head(p, x, cfg)[:, 0], cache

@@ -34,6 +34,21 @@ class ServeReport:
     sidecar_overhead: float = 0.0
 
 
+def _with_headroom(cache, full):
+    """The prefill's cache in the decode cache's shapes: a KV leaf sized to
+    the prompt is written into the leading corner of ``full``'s (which
+    has head-room for the new tokens); a leaf with no sequence axis (a
+    recurrent state) has ``full``'s shape already and is taken as it is,
+    in ``full``'s dtype."""
+    for name, dst in full.items():
+        src = cache[name]
+        if src.shape == dst.shape:
+            full[name] = src.to(dst.dtype)
+        else:
+            dst[tuple(slice(0, n) for n in src.shape)] = src
+    return full
+
+
 def serve_batch(cfg: ModelConfig, params, prompts: torch.Tensor,
                 max_new_tokens: int, *, policy: Optional[HRMPolicy] = None,
                 error_rate_per_token: float = 0.0, seed: int = 0):
@@ -46,12 +61,8 @@ def serve_batch(cfg: ModelConfig, params, prompts: torch.Tensor,
     serve = make_serve_step(cfg)
 
     logits_last, cache = prefill(params, {"tokens": prompts})
-    # prefill returns a cache sized S0; decode needs head-room up to
-    # S0 + max_new_tokens, (L,B,S,K,dh)
-    full = init_cache(cfg, B, S0 + max_new_tokens, device=prompts.device)
-    for name, dst in full.items():
-        dst[:, :, :S0] = cache[name]
-    cache = full
+    cache = _with_headroom(cache, init_cache(cfg, B, S0 + max_new_tokens,
+                                             device=prompts.device))
 
     # leaf table + sidecars built once: nothing re-indexes in the token
     # loop. With no policy there is no domain (and no sidecar overhead to

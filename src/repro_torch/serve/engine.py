@@ -62,8 +62,8 @@ from repro_torch.core.availability import MINUTES_PER_MONTH
 from repro_torch.core.trace import BoundStrike, ErrorTrace, bind_trace
 from repro_torch.models.attention import _project_qkv
 from repro_torch.models.common import dtype_of, rmsnorm
-from repro_torch.models.mlp import mlp_apply
-from repro_torch.models.transformer import (_dense_family, _head, _unstack,
+from repro_torch.models.mlp import mlp_apply, moe_apply
+from repro_torch.models.transformer import (_check_ported, _head, _unstack,
                                             forward)
 from repro_torch.serve.metrics import SLOCounters, SLOReport, build_report
 from repro_torch.serve.paged_kv import PagedKVCache
@@ -114,8 +114,13 @@ def paged_decode_logits(params, pool_k: torch.Tensor, pool_v: torch.Tensor,
     runs as ``models.attention.attn_decode`` runs it on a contiguous
     cache, with the validity mask per slot. The gathered view holds what
     the contiguous cache holds, so the logits are ``decode_step``'s bit
-    for bit."""
-    _dense_family(cfg)
+    for bit. A MoE layer routes all ``S`` slots' tokens together, the idle
+    ones included, as the reference's does: under a capacity that drops
+    tokens a slot's logits can differ from its batch-1 ``decode_step``."""
+    _check_ported(cfg)
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"paged decode supports dense/moe/vlm, "
+                         f"not {cfg.family!r}")
     dh, H = cfg.head_dim, cfg.n_heads
     S, P = table.shape
     smax = P * page_size
@@ -143,8 +148,11 @@ def paged_decode_logits(params, pool_k: torch.Tensor, pool_v: torch.Tensor,
         w = torch.softmax(scores, dim=-1).to(vv.dtype)
         o = torch.einsum("bkgqs,bskd->bqkgd", w, vv).reshape(S, 1, H * dh)
         x = x + o.to(x.dtype) @ layer["attn"]["wo"].to(x.dtype)
-        x = x + mlp_apply(
-            layer["mlp"], rmsnorm(x, layer["norm2"], cfg.norm_eps), cfg)
+        hn = rmsnorm(x, layer["norm2"], cfg.norm_eps)
+        if cfg.family == "moe":
+            x = x + moe_apply(layer["moe"], hn, cfg)[0]
+        else:
+            x = x + mlp_apply(layer["mlp"], hn, cfg)
         # the new K/V into its page (inactive slots land in the null page
         # and are never read unmasked)
         pk[pid, off] = k_new[:, 0].to(pk.dtype)

@@ -1,14 +1,18 @@
 """Paged KV cache: fixed-size pages, a host-side free-list allocator, and
 device pools that register as their own ``MemoryDomain`` root.
 
-Counterpart of ``repro.serve.paged_kv``. Layout: two pools ``(n_layers,
-n_pages, page_size, n_kv_heads, head_dim)`` (keys and values), torch
-tensors in the compute dtype on the device the cache was made for. Page 0
-is the reserved *null* page: page-table slots that a request has not grown
-into yet point at it, and decode steps of inactive scheduler slots write
-their K/V there. The null page is only ever read at attention positions
-past a slot's current length, where the validity mask zeroes its weight
-exactly, so its contents never reach an output.
+Counterpart of ``repro.serve.paged_kv``, for the attention-cache families
+the port runs, dense and MoE. The hybrid and xLSTM families keep
+recurrent state, not pages, and raise the reference's ``ValueError``; VLM
+paged serving waits for its frontend (ROADMAP.md, queue 1, item 12).
+Layout: two pools ``(n_layers, n_pages, page_size, n_kv_heads,
+head_dim)`` (keys and values), torch tensors in the compute dtype on the
+device the cache was made for. Page 0 is the reserved *null* page:
+page-table slots that a request has not grown into yet point at it, and
+decode steps of inactive scheduler slots write their K/V there. The null
+page is only ever read at attention positions past a slot's current
+length, where the validity mask zeroes its weight exactly, so its
+contents never reach an output.
 
 The pools are the Fig. 4 "most error-tolerant, largest" region: the
 engine wraps them in a second ``MemoryDomain`` (root ``kv_cache``) so the
@@ -44,11 +48,10 @@ class PagedKVCache:
             raise ValueError(
                 f"paged KV serving supports attention-cache families "
                 f"(dense/moe/vlm), not {cfg.family!r}")
-        if cfg.family != "dense":
+        if cfg.family == "vlm":
             raise NotImplementedError(
-                f"paged KV serving in the port runs the dense family, not "
-                f"{cfg.family!r}: the port's transformer is dense-only, and "
-                f"MoE and VLM wait for ROADMAP.md, queue 1, item 12")
+                "paged KV serving in the port runs the dense and moe "
+                "families; VLM waits for ROADMAP.md, queue 1, item 12")
         if n_pages < 2:
             raise ValueError("need at least one real page beside the null "
                              "page")

@@ -4,10 +4,13 @@ The draws are the same on the card as on the CPU (``chip_smoke.py`` phase
 3c holds them equal bit for bit there); these tests pin the CPU side to
 checksums recorded once, so a change of generator or transform shows here:
 the int64 sum of each leaf's raw bytes of tiny llama3-8b's and tiny
-kvstore-demo's seed-0 parameters, and the kv-store's query keys. Beside
-them, the generator's own properties: counters hashed in chunks equal one
-pass, the interpolated inverse CDF is within 1e-7 of the exact one, and a
-large draw has the truncated normal's moments."""
+kvstore-demo's seed-0 parameters, and of the four tiny MoE, hybrid and
+xLSTM configs' (whose convs and sLSTM recurrent weights are normal draws),
+the kv-store's query keys, and ``Stream.normal``'s draws. Beside them,
+the generator's own properties: counters hashed in chunks equal one pass,
+the interpolated inverse CDFs are within 1e-7 (truncated) and 8e-7
+(normal) of the exact ones, and a large draw has the distribution's
+moments."""
 import math
 
 import numpy as np
@@ -35,7 +38,48 @@ LEAF_BYTE_SUMS = {
         "blocks/mlp/wi": 1031583, "blocks/mlp/wo": 1026663,
         "blocks/norm1": 6112, "blocks/norm2": 6112, "embed": 66050530,
         "final_norm": 6112, "head": 65035085},
+    "granite-moe-3b-a800m": {
+        "blocks/attn/wk": 2014826, "blocks/attn/wo": 4154786,
+        "blocks/attn/wq": 4072660, "blocks/attn/wv": 2026087,
+        "blocks/moe/router": 519261, "blocks/moe/wg": 32451903,
+        "blocks/moe/wi": 32496534, "blocks/moe/wo": 33284358,
+        "blocks/norm1": 24448, "blocks/norm2": 24448, "embed": 8242402,
+        "final_norm": 12224, "head": 8102969},
+    "deepseek-moe-16b": {
+        "blocks/attn/wk": 4040913, "blocks/attn/wo": 4143652,
+        "blocks/attn/wq": 4072660, "blocks/attn/wv": 4053057,
+        "blocks/moe/router": 506972, "blocks/moe/shared/wg": 4045314,
+        "blocks/moe/shared/wi": 4041832, "blocks/moe/shared/wo": 4161934,
+        "blocks/moe/wg": 32472322, "blocks/moe/wi": 32475548,
+        "blocks/moe/wo": 33286745, "blocks/norm1": 24448,
+        "blocks/norm2": 24448, "embed": 8235912, "final_norm": 12224,
+        "head": 8103236},
+    "zamba2-2.7b": {
+        "blocks/mamba/A_log": 3860, "blocks/mamba/D_skip": 3056,
+        "blocks/mamba/conv_b": 0, "blocks/mamba/conv_w": 1276092,
+        "blocks/mamba/dt_bias": 3072, "blocks/mamba/in_proj": 37028315,
+        "blocks/mamba/norm_w": 97792, "blocks/mamba/out_proj": 16452896,
+        "blocks/norm": 48896, "embed": 8231034, "final_norm": 12224,
+        "head": 8147263, "shared/attn/wk": 2027586,
+        "shared/attn/wo": 2023826, "shared/attn/wq": 2011381,
+        "shared/attn/wv": 2017575, "shared/mlp/wg": 4050761,
+        "shared/mlp/wi": 4046463, "shared/mlp/wo": 4067950,
+        "shared/norm1": 12224, "shared/norm2": 12224},
+    "xlstm-350m": {
+        "blocks_m/mlstm/b_f": 256, "blocks_m/mlstm/b_i": 384,
+        "blocks_m/mlstm/conv_b": 0, "blocks_m/mlstm/conv_w": 256583,
+        "blocks_m/mlstm/down_proj": 4089624,
+        "blocks_m/mlstm/norm_w": 24448, "blocks_m/mlstm/up_proj": 8113573,
+        "blocks_m/mlstm/w_if": 256569, "blocks_m/mlstm/wk": 8247587,
+        "blocks_m/mlstm/wq": 8209465, "blocks_m/mlstm/wv": 8235934,
+        "blocks_m/norm": 12224, "blocks_s/norm": 12224,
+        "blocks_s/slstm/b": 20480, "blocks_s/slstm/norm_w": 12224,
+        "blocks_s/slstm/out_proj": 2034510,
+        "blocks_s/slstm/r_rec": 4082727, "blocks_s/slstm/w_in": 8134838,
+        "embed": 8220765, "final_norm": 12224, "head": 8089420},
 }
+# Stream(11).normal((1000,), scale, dtype): its raw bytes' sum
+NORMAL_SUMS = {(0.1, torch.bfloat16): 248809, (1.0, torch.float32): 507576}
 KVSTORE_KEYS = [
     [2829, 1990, 2554, 3765, 1204, 3395, 434, 3116, 554, 1565, 1117, 920,
      140, 423, 3775, 547, 3651, 3730, 4009, 1536, 3794, 444, 2463, 3185,
@@ -105,6 +149,31 @@ def test_truncated_normal_is_the_inverse_cdf():
     assert float(z.abs().max()) < 2.0
     assert abs(float(z.mean())) < 3e-3
     assert abs(float(z.std()) / TRUNC_STD - 1) < 3e-3
+
+
+@pytest.mark.parametrize("scale,dtype", sorted(NORMAL_SUMS, key=str))
+def test_normal_is_pinned(scale, dtype):
+    z = draws.Stream(11, CPU).normal((1000,), scale, dtype)
+    assert z.dtype == dtype and _byte_sum(z) == NORMAL_SUMS[scale, dtype]
+
+
+def test_normal_is_the_inverse_cdf():
+    """Every one of the 2**24 points the normal can take is within 8e-7 of
+    the exact inverse CDF at its cell's midpoint; the tails reach +-5.42
+    and their exact cells mirror each other; a large draw has mean 0 and
+    deviation 1."""
+    values, steps, tail = draws._normal_tables()
+    k = torch.arange(1 << 24, dtype=torch.int64)
+    z = draws.Stream(0, CPU)
+    z.bits32 = lambda n: (k << 8)[:n]             # every 24-bit point once
+    got = z.normal((1 << 24,), 1.0, torch.float32).double()
+    exact = torch.special.ndtri((k.double() + 0.5) / (1 << 24))
+    assert float((got - exact).abs().max()) < 8e-7
+    n = tail.numel()                              # the exact tail cells
+    assert torch.equal(got[:n], -got.flip(0)[:n])
+    assert 5.4 < float(got.max()) < 5.43
+    x = draws.Stream(3, CPU).normal((1 << 20,), 1.0, torch.float32)
+    assert abs(float(x.mean())) < 3e-3 and abs(float(x.std()) - 1) < 3e-3
 
 
 def test_randint_range():

@@ -180,7 +180,7 @@ def test_forward_of_other_families_raises():
     cfg = get_tiny("llama3-8b")
     p = {"embed": torch.zeros(4, 2)}
     tokens = {"tokens": torch.zeros(1, 2, dtype=torch.int64)}
-    for bad in (cfg.replace(family="moe"),
+    for bad in (cfg.replace(family="vlm"),
                 cfg.replace(frontend="vision_patches")):
         with pytest.raises(NotImplementedError, match="item 12"):
             forward(p, tokens, bad)

@@ -255,3 +255,36 @@ def test_sharded_and_examples_slice_loads_no_jax_and_no_reference():
         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.splitlines()[-1] == "SHARDED SMOKE OK"
+
+
+def test_families_slice_loads_no_jax_and_no_reference():
+    """The MoE, hybrid and xLSTM families alone: their configs, mixers and
+    the paged engine pull in only torch, numpy and the port, and ``python
+    -m repro_torch.launch.serve --arch <family> --device cpu`` runs each
+    of them."""
+    code = textwrap.dedent("""
+        import sys
+        import repro_torch.models.mlp, repro_torch.models.gla
+        import repro_torch.models.mamba2, repro_torch.models.xlstm
+        import repro_torch.serve.engine, repro_torch.serve.paged_kv
+        from repro_torch.configs import get_tiny
+        for arch in ("granite-moe-3b-a800m", "deepseek-moe-16b",
+                     "zamba2-2.7b", "xlstm-350m"):
+            get_tiny(arch)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        assert "repro_torch.configs.zamba2_2p7b" in sys.modules
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for arch in ("granite-moe-3b-a800m", "zamba2-2.7b", "xlstm-350m"):
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             arch, "--device", "cpu", "--batch", "2", "--new-tokens", "4"],
+            env=env, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.splitlines()[-1] == \
+            "tokens=8 corrected=0 detected=0 injected=0"

@@ -183,7 +183,7 @@ def test_allocator_capacity_and_double_alloc_guards():
         PagedKVCache(CFG, n_pages=1, page_size=8, slots=1,
                      max_pages_per_slot=1, device=CPU)
     with pytest.raises(NotImplementedError, match="item 12"):
-        PagedKVCache(CFG.replace(family="moe"), n_pages=4, page_size=8,
+        PagedKVCache(CFG.replace(family="vlm"), n_pages=4, page_size=8,
                      slots=1, max_pages_per_slot=1, device=CPU)
     with pytest.raises(ValueError, match="attention-cache"):
         PagedKVCache(CFG.replace(family="ssm"), n_pages=4, page_size=8,
