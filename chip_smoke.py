@@ -201,6 +201,31 @@ Needs one CUDA card (an H100: the kernels build for ``sm_90a``) and
    embed, norm; ssm, attn, mlp) after the determinism check: masked,
    incorrect and crash shares.
 
+13. the audio and vision frontends, after phase 12, each path's launches
+   counted on their own (``frontends_*``): (a) tiny hubert-xlarge and
+   llava-next-mistral-7b in float32 compute on the card and on the CPU
+   from one seed: parameters equal bit for bit, ``forward`` logits and
+   (llava) 16 ``decode_step`` logits after a patch-prefixed prefill
+   within FAMILY_TINY_REL, a 32-trial campaign equal trial by trial; (b)
+   hubert-xlarge whole (48 layers, 946 M float32 parameters): 32 encoder
+   queries (the greedy cluster id of each of 8 x 500 frames) under
+   typical_server and detect_recover with phase 8's strike stream and a
+   scrub between queries (every single-bit strike corrected under
+   typical_server), ms per query, frames/s, peak memory; then 4
+   ``run_training`` steps at batch 4 x 500 under typical_server with a
+   scrub every 2 steps, ms per step and scrub overhead; (c)
+   llava-next-mistral-7b at full width with 8 of its 32 layers:
+   ``make_prefill_step`` on 2,880 patches + 512 tokens at batch 4, then
+   128 ``make_serve_step`` tokens under typical_server and
+   detect_recover with phase 8's strikes (``serve_batch`` takes tokens
+   only, as the reference's does), after decode is held against
+   ``forward`` on the extended sequence; 16 paged decode steps on a
+   ``PagedKVCache`` of the VLM held against batch-1 ``decode_step`` on
+   each slot's gathered pages; (d) the Fig. 2 campaign on hubert whole
+   and llava at 8 layers, 32 single-error soft trials in each of the
+   embed (frame or patch projection, embedding, head), attn, mlp and
+   norm regions after the determinism check.
+
 Phase 3c holds the port's random draws (tiny llama3-8b and kvstore-demo
 parameters, the kv-store's query keys, the four tiny MoE, hybrid and
 xLSTM configs' parameters and 2**20 ``Stream.normal`` draws) made on the
@@ -353,6 +378,21 @@ FAMILY_REGIONS = {
     "granite-moe-3b-a800m": ("params/experts", "params/attn",
                              "params/embed", "params/norm"),
     "zamba2-2.7b": ("params/ssm", "params/attn", "params/mlp")}
+# phase 13: the audio and vision frontends
+AUDIO_ARCH, VLM_ARCH = "hubert-xlarge", "llava-next-mistral-7b"
+# llava-next-mistral-7b whole is 14.52 GB of bf16 parameters and the
+# unsharded scrub holds about six copies of a payload: at 8 of its 32
+# layers (phase 3's cut of llama3-8b) it is 4.05 GB
+VLM_LAYERS = N_LAYERS
+AUDIO_BATCH, AUDIO_FRAMES = 8, 500     # 10 s clips of 50 Hz frames
+AUDIO_QUERIES = 32                     # encoder queries a policy
+AUDIO_TRAIN_BATCH, AUDIO_TRAIN_STEPS, AUDIO_TRAIN_SCRUB = 4, 4, 2
+AUDIO_TRAIN_RATE = 1.0                 # expected strikes a train step
+VLM_BATCH, VLM_TEXT, VLM_NEW = 4, 512, 128   # + the config's 2,880 patches
+VLM_PAGE, VLM_PAGED_STEPS = 16, 16
+VLM_CAMPAIGN_BATCH = 2                 # (d): query of 2 x (2,880 + 256)
+FRONTEND_REGIONS = ("params/embed", "params/attn", "params/mlp",
+                    "params/norm")
 # push results are held to the plain version's at rtol + ATOL_REL x max|y|:
 # both sum in float64 and round once, but the kernels' atomics add in an
 # order that changes from run to run, which can move a rounding by one ulp
@@ -4191,6 +4231,511 @@ def run_families(dev, by_path: dict) -> None:
         raise AssertionError(f"phase 12 parts failed: {failed}")
 
 
+# ------------------------------------------- 13. the audio and vision frontends
+def _frontend_cfg(arch: str):
+    """The arch's full config, llava's depth cut to VLM_LAYERS."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.replace(n_layers=VLM_LAYERS) if arch == VLM_ARCH else cfg
+
+
+def _vlm_prefill(cfg, params, batch, new: int):
+    """``make_prefill_step`` on the batch's tokens and patches: (the greedy
+    next token, the cache padded for ``new`` decode steps, S0, ms)."""
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.serve_loop import _with_headroom
+    from repro_torch.runtime.steps import make_prefill_step
+    inputs = {"tokens": batch["tokens"], "patches": batch["patches"]}
+    (last, cache), ms = _timed(lambda: make_prefill_step(cfg)(params,
+                                                              inputs))
+    B, S0 = batch["tokens"].shape[0], cfg.n_patches + \
+        batch["tokens"].shape[1]
+    full = init_cache(cfg, B, S0 + new, device=batch["tokens"].device)
+    return torch.argmax(last, dim=-1), _with_headroom(cache, full), S0, ms
+
+
+def _tiny_frontend_run(cfg, device):
+    """Tiny ``cfg`` on one device from one seed: (parameters, forward
+    logits, FAMILY_DECODE_STEPS decode logits after a patch-prefixed
+    prefill (vlm; None for audio), campaign outcomes), results on the
+    CPU."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import characterize
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.draws import Stream
+    from repro_torch.models import decode_step, forward, init_params
+    p = init_params(cfg, seed=SEED, device=device)
+    batch = make_batch(cfg, ShapeSpec("t", FAMILY_TINY_TOKENS, 2, "train"),
+                       seed=SEED + 2, device=device)
+    logits = forward(p, batch, cfg)[0]
+    dec = None
+    if cfg.family == "vlm":
+        _, cache, S0, _ = _vlm_prefill(cfg, p, batch, FAMILY_DECODE_STEPS)
+        toks = Stream(SEED + 1, device).randint(cfg.vocab_size,
+                                                (2, FAMILY_DECODE_STEPS))
+        dec = []
+        for t in range(FAMILY_DECODE_STEPS):
+            lg, cache = decode_step(p, toks[:, t], S0 + t, cache, cfg)
+            dec.append(lg)
+        dec = torch.stack(dec, 1).cpu()
+    ev = characterize.lm_eval_fn(cfg, batch, forward)
+    outcomes = [(path, kind, o.value) for path, kind, o in
+                characterize.run_campaign(ev, p, n_trials=FAMILY_TINY_TRIALS,
+                                          seed=SEED).trials]
+    return p, logits.cpu(), dec, outcomes
+
+
+def frontends_card_vs_cpu(dev, by_path: dict) -> None:
+    """(a) Tiny hubert-xlarge and llava-next-mistral-7b in float32 compute,
+    on the card and on the CPU from one seed: parameters equal bit for
+    bit; ``forward`` logits and (llava) FAMILY_DECODE_STEPS ``decode_step``
+    logits after a patch-prefixed prefill within FAMILY_TINY_REL x
+    max|logit|; a campaign of FAMILY_TINY_TRIALS soft and as many hard
+    trials equal trial by trial."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.core import tree
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    for arch in (AUDIO_ARCH, VLM_ARCH):
+        cfg = get_tiny(arch).replace(compute_dtype="float32")
+        card = _tiny_frontend_run(cfg, dev)
+        cpu = _tiny_frontend_run(cfg, torch.device("cpu"))
+        unequal = sum(
+            not torch.equal(_bytes(a.cpu()), _bytes(b))
+            for a, b in zip(tree.leaves(card[0]), tree.leaves(cpu[0])))
+        lg = float((card[1] - cpu[1]).abs().max()) / float(
+            cpu[1].abs().max())
+        dec = 0.0 if cpu[2] is None else float(
+            (card[2] - cpu[2]).abs().max()) / float(cpu[2].abs().max())
+        same_trials = card[3] == cpu[3]
+        outcomes = json.dumps({o: sum(t[2] == o for t in card[3])
+                               for o in sorted({t[2] for t in card[3]})})
+        print(f"frontends tiny {arch} card vs cpu (float32): unequal "
+              f"parameter leaves={unequal} of {len(tree.leaves(cpu[0]))} "
+              f"forward max|diff|/max|logit|={lg:.3g}" + (
+                  "" if cpu[2] is None else
+                  f" decode {FAMILY_DECODE_STEPS} steps after "
+                  f"{cfg.n_patches} patches + "
+                  f"{FAMILY_TINY_TOKENS - cfg.n_patches} tokens "
+                  f"max|diff|/max|logit|={dec:.3g}")
+              + f" campaign trials={len(cpu[3])} outcomes equal trial by "
+              f"trial={same_trials} (card: {outcomes})")
+        if unequal or lg > FAMILY_TINY_REL or dec > FAMILY_TINY_REL or \
+                not same_trials:
+            raise AssertionError(f"frontends tiny {arch}: card and CPU "
+                                 "differ")
+    _path_launches("frontends_tiny", {"bitflip"}, by_path)
+
+
+def _policy(name: str, interval: int):
+    import dataclasses
+    from repro_torch.core import DESIGN_POINTS
+    return dataclasses.replace(DESIGN_POINTS[name](),
+                               scrub_interval=interval)
+
+
+def _expect_secded(name: str, rep, strikes, last_scrub: int) -> str:
+    """Under typical_server, the words struck once before the last scrub
+    must be corrected and those struck twice flagged."""
+    if name != "typical_server":
+        return ""
+    single, double = _secded_expected(strikes, last_scrub)
+    if (rep.scrub_corrected, rep.scrub_detected) != (single, double):
+        raise AssertionError(
+            f"typical_server: corrected {rep.scrub_corrected} detected "
+            f"{rep.scrub_detected}, struck before the last scrub: {single} "
+            f"single-bit, {double} double-bit words")
+    return (f" (expected: {single} single-bit, {double} double-bit words "
+            f"struck by step {last_scrub})")
+
+
+def _fault_plane(domain, rep, rng, t: int, interval: int):
+    """Step ``t`` of ``serve_batch``'s fault plane: a strike with
+    probability SERVE_ERROR_RATE, then a scrub every ``interval`` steps
+    after the first, counted into ``rep``. Returns the domain."""
+    if rng.random() < SERVE_ERROR_RATE:
+        domain, events = domain.inject(rng, 1)
+        rep.injected += len(events)
+    if t > 0 and t % interval == 0:
+        domain, r = domain.scrub()
+        c, u = r.totals()
+        rep.scrub_corrected += c
+        rep.scrub_detected += u
+    return domain
+
+
+def _audio_queries(cfg, params, ev, golden, name: str):
+    """AUDIO_QUERIES encoder queries under policy ``name`` with phase 8's
+    strike stream (one uniform a query, then ``MemoryDomain.inject``) and
+    a scrub before every query after the first: (report, ms per query,
+    queries equal to the golden ids, the strikes drawn, peak bytes)."""
+    from repro_torch.core import MemoryDomain
+    from repro_torch.runtime.serve_loop import ServeReport
+    policy = _policy(name, 1)
+    torch.cuda.reset_peak_memory_stats()
+    domain = MemoryDomain.protect(params, policy)
+    rep = ServeReport(sidecar_overhead=domain.stats().overhead)
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    ms, same = [], 0
+    for t in range(AUDIO_QUERIES):
+        domain = _fault_plane(domain, rep, rng, t, 1)
+        ids, q_ms = _timed(lambda: ev(domain.payload)[0])
+        ms.append(q_ms)
+        same += bool(torch.equal(ids, golden))
+        rep.queries += 1
+    strikes = _serve_strikes(domain.spec, policy, AUDIO_QUERIES,
+                             SERVE_ERROR_RATE, SERVE_SEED)
+    return rep, ms, same, strikes, torch.cuda.max_memory_allocated()
+
+
+def _audio_train(cfg, params, by_path: dict) -> None:
+    """AUDIO_TRAIN_STEPS ``run_training`` steps at batch AUDIO_TRAIN_BATCH x
+    AUDIO_FRAMES under typical_server with a scrub every AUDIO_TRAIN_SCRUB
+    steps and AUDIO_TRAIN_RATE strikes a step (hard ones included); the
+    step-0 snapshot goes to a temporary directory outside the repository.
+    Prints ms per step, the scrub and write-path ms and the scrub overhead
+    at this interval, (scrub ms + interval x refresh ms) / (interval x step
+    ms)."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import batch_stream
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.train_loop import run_training
+    need = _train_need({"params": params}, ("params",),
+                       _policy("typical_server", AUDIO_TRAIN_SCRUB))
+    save, saves = CheckpointStore.save, []
+
+    def timed_save(store, *a, **k):
+        out, ms = _timed(lambda: save(store, *a, **k))
+        saves.append(ms)
+        return out
+    with tempfile.TemporaryDirectory() as ck:
+        free = shutil.disk_usage(ck).free
+        loop = _loop(cfg, "typical_server", AUDIO_TRAIN_STEPS, ck,
+                     scrub=AUDIO_TRAIN_SCRUB,
+                     error_rate_per_step=AUDIO_TRAIN_RATE,
+                     ckpt_interval=10 ** 6)
+        stream = batch_stream(cfg, AUDIO_TRAIN_BATCH, AUDIO_FRAMES,
+                              seed=SEED, device=params["head"].device)
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        CheckpointStore.save = timed_save
+        try:
+            with _TrainTimer() as timer:
+                rep, wall_ms = _timed(lambda: run_training(
+                    cfg, TrainConfig(remat="none"), loop, stream,
+                    device=params["head"].device))
+        finally:
+            CheckpointStore.save = save
+        peak = torch.cuda.max_memory_allocated()
+    _path_launches("frontends_audio_train", need, by_path)
+    s = timer.summary()
+    overhead = (s["scrub_ms_median"] + AUDIO_TRAIN_SCRUB
+                * s["refresh_reassert_ms_median"]) / (
+                    AUDIO_TRAIN_SCRUB * s["step_ms_median"])
+    print(_report_line(f"frontends audio train {AUDIO_ARCH}", rep)
+          + f" batch={AUDIO_TRAIN_BATCH}x{AUDIO_FRAMES} ms_per_step="
+          f"{[round(x, 1) for x in timer.ms['step']]} step_ms_median="
+          f"{s['step_ms_median']:.1f} scrub_ms_median="
+          f"{s['scrub_ms_median']:.2f} refresh_reassert_ms_median="
+          f"{s['refresh_reassert_ms_median']:.2f} scrub_overhead_"
+          f"{AUDIO_TRAIN_SCRUB}={100 * overhead:.3f}% snapshot_ms="
+          f"{[round(x) for x in saves]} (step 0, train state "
+          f"{_leaf_bytes(params) * 3} bytes; {free} bytes free there) "
+          f"wall_s={wall_ms / 1e3:.1f} peak_bytes={peak}")
+    if len(rep.losses) != AUDIO_TRAIN_STEPS or rep.restarts or \
+            not np.all(np.isfinite(rep.losses)):
+        raise AssertionError("frontends audio train: a step is missing or "
+                             "a loss is not finite")
+
+
+def frontends_audio(dev, by_path: dict) -> None:
+    """(b) hubert-xlarge whole: the encoder query (``lm_eval_fn``'s greedy
+    cluster id a frame) over AUDIO_BATCH x AUDIO_FRAMES frames,
+    AUDIO_QUERIES queries under each of FAMILY_POLICIES with phase 8's
+    strikes and a scrub between queries (under typical_server every
+    single-bit strike corrected); then ``_audio_train``."""
+    from repro_torch.core import lm_eval_fn, tree
+    from repro_torch.data.synthetic import audio_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import forward, init_params
+    cfg = _frontend_cfg(AUDIO_ARCH)
+    params = init_params(cfg, seed=SEED, device=dev)
+    batch = audio_batch(cfg, AUDIO_BATCH, AUDIO_FRAMES, SEED, device=dev)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    print(f"frontends audio {AUDIO_ARCH}: family={cfg.family} causal="
+          f"{cfg.causal} layers={cfg.n_layers} nothing cut d_model="
+          f"{cfg.d_model} params={n_params} bytes={_leaf_bytes(params)} "
+          f"({cfg.param_dtype}) compute={cfg.compute_dtype} query="
+          f"{AUDIO_BATCH}x{AUDIO_FRAMES} frames")
+    ev = lm_eval_fn(cfg, batch, forward)
+    golden = ev(params)[0]
+    if tuple(golden.shape) != (AUDIO_BATCH, AUDIO_FRAMES) or \
+            int(golden.min()) < 0 or int(golden.max()) >= cfg.vocab_size:
+        raise AssertionError(f"frontends audio: cluster ids "
+                             f"{tuple(golden.shape)} out of range")
+    _build.reset_launches()
+    last_scrub = AUDIO_QUERIES - 1
+    for name in FAMILY_POLICIES:
+        rep, ms, same, strikes, peak = _audio_queries(cfg, params, ev,
+                                                      golden, name)
+        if rep.injected != len(strikes) or not strikes:
+            raise AssertionError(f"frontends audio {name}: injected "
+                                 f"{rep.injected}, the stream draws "
+                                 f"{len(strikes)}")
+        expect = _expect_secded(name, rep, strikes, last_scrub)
+        med = float(np.median(ms))
+        print(f"frontends audio {AUDIO_ARCH} {name}: queries={len(ms)} "
+              f"ms_per_query_median={med:.3f} (min {min(ms):.3f} max "
+              f"{max(ms):.3f}) frames_per_s="
+              f"{AUDIO_BATCH * AUDIO_FRAMES / med * 1e3:.1f} strikes_drawn="
+              f"{len(strikes)} injected={rep.injected} corrected="
+              f"{rep.scrub_corrected} flagged={rep.scrub_detected}{expect} "
+              f"queries_equal_golden={same} sidecar_overhead="
+              f"{rep.sidecar_overhead:.4f} peak_bytes={peak}")
+    _path_launches("frontends_audio_query", SERVE_KERNELS, by_path)
+    _audio_train(cfg, params, by_path)
+
+
+def _vlm_serve(cfg, params, batch, name: str):
+    """``make_prefill_step`` on tokens and patches, then VLM_NEW
+    ``make_serve_step`` tokens under policy ``name``, composed as
+    ``serve_batch`` composes them for tokens (which the reference does
+    not do for patches): phase 8's strike stream and scrub interval.
+    Returns (tokens, report, prefill ms, ms a token, strikes, wall ms)."""
+    from repro_torch.core import MemoryDomain
+    from repro_torch.runtime.serve_loop import ServeReport
+    from repro_torch.runtime.steps import make_serve_step
+    policy = _policy(name, SERVE_SCRUB_INTERVAL)
+    serve = make_serve_step(cfg)
+    _sync()
+    t0 = time.perf_counter()
+    token, cache, pos, prefill_ms = _vlm_prefill(cfg, params, batch,
+                                                 VLM_NEW)
+    domain = MemoryDomain.protect(params, policy)
+    rep = ServeReport(sidecar_overhead=domain.stats().overhead)
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    out, tok_ms = [], []
+    for t in range(VLM_NEW):
+        domain = _fault_plane(domain, rep, rng, t, SERVE_SCRUB_INTERVAL)
+        out.append(token)
+        (cache, token, pos), ms = _timed(
+            lambda: serve(domain.payload, cache, token, pos))
+        tok_ms.append(ms)
+        rep.tokens_emitted += token.shape[0]
+    _sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rep.queries += token.shape[0]
+    strikes = _serve_strikes(domain.spec, policy, VLM_NEW,
+                             SERVE_ERROR_RATE, SERVE_SEED)
+    return torch.stack(out, 1), rep, prefill_ms, tok_ms, strikes, wall_ms
+
+
+def _vlm_decode_check(cfg, params, batch) -> None:
+    """The first LOGIT_CHECK_TOKENS decode positions after the
+    patch-prefixed prefill against a ``forward`` over the patches, the
+    text and the generated tokens: max |diff| printed; greedy tokens equal
+    wherever the forward's top-2 margin exceeds it."""
+    from repro_torch.models import decode_step, forward
+    token, cache, S0, _ = _vlm_prefill(cfg, params, batch,
+                                       LOGIT_CHECK_TOKENS)
+    gen, dec = [], []
+    for t in range(LOGIT_CHECK_TOKENS):
+        gen.append(token)
+        lg, cache = decode_step(params, token, S0 + t, cache, cfg)
+        dec.append(lg.float())
+        token = torch.argmax(lg, dim=-1)
+    del cache
+    seq = torch.cat([batch["tokens"], torch.stack(gen, 1)], 1)
+    ref = forward(params, {"tokens": seq, "patches": batch["patches"]},
+                  cfg)[0][:, S0:].float()
+    dec = torch.stack(dec, 1)
+    diff = float((dec - ref).abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > diff
+    agree = bool((dec.argmax(-1) == ref.argmax(-1))[clear].all())
+    print(f"frontends vlm decode vs forward ({LOGIT_CHECK_TOKENS} positions"
+          f" x {seq.shape[0]} after {S0} prefilled): max|diff|={diff:.4g} "
+          f"max|logit|={float(ref.abs().max()):.4g} positions with top-2 "
+          f"margin above it: {int(clear.sum())} of {clear.numel()}, tokens "
+          f"equal there: {agree}")
+    if not agree:
+        raise AssertionError("frontends vlm: decode and forward disagree "
+                             "on a clear token")
+
+
+def _vlm_paged_check(cfg, params, batch) -> None:
+    """VLM_PAGED_STEPS ``paged_decode_logits`` steps on a
+    ``PagedKVCache(vlm)`` whose pages hold the patch-prefixed prefill's
+    K/V (``prefill_write`` takes no patches, in the reference neither),
+    each slot held against ``decode_step`` (batch 1) on its gathered pages
+    before the step: max |diff| and greedy tokens equal where the top-2
+    margin exceeds it."""
+    from repro_torch.serve import PagedKVCache
+    B = batch["tokens"].shape[0]
+    token, cache, S0, _ = _vlm_prefill(cfg, params, batch, 0)
+    per_slot = -(-(S0 + VLM_PAGED_STEPS) // VLM_PAGE)
+    kv = PagedKVCache(cfg, n_pages=B * per_slot + 1, page_size=VLM_PAGE,
+                      slots=B, max_pages_per_slot=per_slot,
+                      device=token.device)
+    n_pp = S0 // VLM_PAGE
+    for i in range(B):
+        pages = torch.as_tensor(kv.alloc(i, S0 + VLM_PAGED_STEPS),
+                                dtype=torch.int64, device=token.device)
+        for pool, name in ((kv.pool_k, "k"), (kv.pool_v, "v")):
+            pool[:, pages[:n_pp]] = cache[name][:, i].reshape(
+                pool.shape[0], n_pp, VLM_PAGE, *pool.shape[3:])
+    del cache
+    kv.check_invariants()
+    checks = []
+    _, checked = _paged_logit_check(cfg, checks)
+    table = kv.device_table()
+    pos = torch.full((B,), S0, dtype=torch.int64, device=token.device)
+    for _ in range(VLM_PAGED_STEPS):
+        logits = checked(params, kv.pool_k, kv.pool_v, table, token, pos,
+                         cfg, VLM_PAGE)
+        token = torch.argmax(logits, dim=-1)
+        pos = pos + 1
+    diff = max(d for _, d, _, _ in checks)
+    top = max(t for _, _, t, _ in checks)
+    agree = all(a for _, _, _, a in checks)
+    print(f"frontends vlm paged vs contiguous decode ({len(checks)} steps x "
+          f"{B} slots, {kv.n_pages} pages of {VLM_PAGE}, pool_bytes=2x"
+          f"{kv.pool_k.numel() * kv.pool_k.element_size()}; decode_step "
+          f"batch 1 on each slot's gathered pages): max|diff|={diff:.4g} "
+          f"max|logit|={top:.4g} tokens equal where the top-2 margin "
+          f"exceeds the diff: {agree}")
+    if not agree:
+        raise AssertionError("frontends vlm: paged and contiguous decode "
+                             "disagree on a clear token")
+
+
+def frontends_vlm(dev, by_path: dict) -> None:
+    """(c) llava-next-mistral-7b at full width with VLM_LAYERS layers: the
+    decode check against ``forward``, then ``_vlm_serve`` at VLM_BATCH x
+    (2,880 patches + VLM_TEXT tokens) and VLM_NEW new tokens under
+    FAMILY_POLICIES (every single-bit strike corrected under
+    typical_server), then the paged decode check."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.data.synthetic import vlm_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_cache, init_params
+    cfg = _frontend_cfg(VLM_ARCH)
+    params = init_params(cfg, seed=SEED, device=dev)
+    batch = vlm_batch(cfg, VLM_BATCH, cfg.n_patches + VLM_TEXT, SEED,
+                      device=dev)
+    S = cfg.n_patches + VLM_TEXT + VLM_NEW
+    cache_bytes = _leaf_bytes(init_cache(cfg, VLM_BATCH, S, device="meta"))
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    print(f"reduced: {VLM_ARCH} n_layers {get_config(VLM_ARCH).n_layers}->"
+          f"{cfg.n_layers} (whole it is 14.52 GB of bf16 parameters; its "
+          f"full depth goes through ShardedMemoryDomain, ROADMAP queue 1, "
+          f"item 12b)")
+    print(f"frontends vlm {VLM_ARCH}: family={cfg.family} layers="
+          f"{cfg.n_layers} d_model={cfg.d_model} params={n_params} bytes="
+          f"{_leaf_bytes(params)} ({cfg.param_dtype}) compute="
+          f"{cfg.compute_dtype} batch={VLM_BATCH} patches={cfg.n_patches} "
+          f"text={VLM_TEXT} new={VLM_NEW} cache_bytes={cache_bytes} "
+          f"({S} positions)")
+    _vlm_decode_check(cfg, params, batch)
+    _build.reset_launches()
+    last_scrub = (VLM_NEW - 1) // SERVE_SCRUB_INTERVAL * SERVE_SCRUB_INTERVAL
+    n_tok = VLM_BATCH * VLM_NEW
+    for name in FAMILY_POLICIES:
+        torch.cuda.reset_peak_memory_stats()
+        toks, rep, prefill_ms, tok_ms, strikes, wall_ms = _vlm_serve(
+            cfg, params, batch, name)
+        peak = torch.cuda.max_memory_allocated()
+        if rep.injected != len(strikes) or not strikes:
+            raise AssertionError(f"frontends vlm {name}: injected "
+                                 f"{rep.injected}, the stream draws "
+                                 f"{len(strikes)}")
+        if toks.shape != (VLM_BATCH, VLM_NEW) or int(toks.min()) < 0 or \
+                int(toks.max()) >= cfg.vocab_size:
+            raise AssertionError(f"frontends vlm {name}: tokens "
+                                 f"{tuple(toks.shape)} out of range")
+        expect = _expect_secded(name, rep, strikes, last_scrub)
+        med = float(np.median(tok_ms))
+        print(f"frontends vlm {VLM_ARCH} {name}: prefill_ms={prefill_ms:.2f}"
+              f" ({VLM_BATCH}x{cfg.n_patches + VLM_TEXT} positions) "
+              f"ms_per_token_median={med:.3f} (min {min(tok_ms):.3f} max "
+              f"{max(tok_ms):.3f}) tokens_per_s={n_tok / wall_ms * 1e3:.1f}"
+              f" (wall_ms={wall_ms:.1f}, prefill and protect included) "
+              f"decode_tokens_per_s={VLM_BATCH / med * 1e3:.1f} "
+              f"strikes_drawn={len(strikes)} injected={rep.injected} "
+              f"corrected={rep.scrub_corrected} flagged="
+              f"{rep.scrub_detected}{expect} sidecar_overhead="
+              f"{rep.sidecar_overhead:.4f} peak_bytes={peak}")
+    _path_launches("frontends_vlm_serve", SERVE_KERNELS, by_path)
+    _vlm_paged_check(cfg, params, batch)
+
+
+def frontends_campaign(dev, by_path: dict) -> None:
+    """(d) The Fig. 2 campaign on hubert-xlarge whole (query: the cluster
+    ids of AUDIO_BATCH x AUDIO_FRAMES frames) and llava at VLM_LAYERS
+    layers (query: the greedy tokens of VLM_CAMPAIGN_BATCH x (2,880
+    patches + CAMPAIGN_SEQ tokens)), after phase 7's determinism check:
+    FAMILY_REGION_TRIALS single-error soft trials in each of
+    FRONTEND_REGIONS, masked / incorrect / crash shares printed. Each
+    config's launches are a path."""
+    from repro_torch.core import Outcome, characterize, lm_eval_fn
+    from repro_torch.data.synthetic import audio_batch, vlm_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import forward, init_params
+    for arch in (AUDIO_ARCH, VLM_ARCH):
+        cfg = _frontend_cfg(arch)
+        params = init_params(cfg, seed=SEED, device=dev)
+        batch = audio_batch(cfg, AUDIO_BATCH, AUDIO_FRAMES, SEED, device=dev) \
+            if arch == AUDIO_ARCH else vlm_batch(
+                cfg, VLM_CAMPAIGN_BATCH, cfg.n_patches + CAMPAIGN_SEQ, SEED,
+                device=dev)
+        ev = lm_eval_fn(cfg, batch, forward)
+        name = f"frontends_campaign_{arch}"
+        dom, _, unwrap = characterize._campaign_domain(params, "params")
+        _check_query(name, ev, dom, unwrap)
+        _build.reset_launches()
+        for region in FRONTEND_REGIONS:
+            res, ms = _timed(lambda: characterize.run_campaign(
+                ev, dom, n_trials=FAMILY_REGION_TRIALS, seed=SEED,
+                kinds=("soft",), region_filter=lambda r: r == region))
+            n = len(res.trials)
+            masked = sum(o in (Outcome.MASKED_OVERWRITE, Outcome.MASKED_LOGIC)
+                         for _, _, o in res.trials)
+            wrong = sum(o is Outcome.INCORRECT for _, _, o in res.trials)
+            crash = sum(o is Outcome.CRASH for _, _, o in res.trials)
+            paths = {p for p, _, _ in res.trials}
+            if n != FAMILY_REGION_TRIALS or \
+                    {dom.spec.by_path[p].region for p in paths} != {region}:
+                raise AssertionError(f"{name}: {n} trials outside {region}")
+            print(f"{name}: region={region} soft trials={n} masked="
+                  f"{masked / n:.4f} incorrect={wrong / n:.4f} crash="
+                  f"{crash / n:.4f} leaves struck={sorted(paths)} wall_s="
+                  f"{ms / 1e3:.2f}")
+        _path_launches(name, {"bitflip"}, by_path)
+        del dom, params
+        torch.cuda.empty_cache()
+
+
+def run_frontends(dev, by_path: dict) -> None:
+    """Phase 13 (a)-(d): each part runs, and the phase fails after the last
+    if any part failed its checks."""
+    print(f"frontends: {card_line()}")
+    failed = []
+    for part in (frontends_card_vs_cpu, frontends_audio, frontends_vlm,
+                 frontends_campaign):
+        try:
+            part(dev, by_path)
+        except AssertionError as e:
+            print(f"FAILED {part.__name__}: {e}")
+            failed.append(part.__name__)
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"phase 13 parts failed: {failed}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4248,6 +4793,7 @@ def main() -> int:
     phase("11_sharded", run_sharded, dev, by_path)
     phase("11_examples", run_examples, dev, by_path)
     phase("12_families", run_families, dev, by_path)
+    phase("13_frontends", run_frontends, dev, by_path)
     print(f"phase_s={json.dumps(phase_s)}")
     print(f"peak_memory_bytes_run={torch.cuda.max_memory_allocated()}")
     print(f"wall_s={time.perf_counter() - t0:.1f}")

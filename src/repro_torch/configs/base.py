@@ -3,10 +3,10 @@
 ``ShapeSpec`` and ``TrainConfig``.
 
 The port keeps its own copy so that it imports nothing of the JAX package.
-The sub-configurations of the MoE, hybrid (Mamba2) and xLSTM families are
-the reference's, defaults included; the audio and vision frontends and the
+The sub-configurations of the MoE, hybrid (Mamba2) and xLSTM families and
+the frontend fields are the reference's, defaults included; the
 reference's sharding knobs (``MoEConfig.dispatch``'s ``"a2a"``,
-``shard_hints``) are carried but not run (ROADMAP.md, queue 1, item 12).
+``shard_hints``) are carried but not run (ROADMAP.md, queue 1, item 12c).
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``get_config(arch)`` returns the full
 config, ``get_tiny(arch)`` the reduced test config of the same family.
-The port lists the architectures whose families and frontends it runs:
-dense, MoE, hybrid and xLSTM on tokens; the audio and vision ones and the
-72-405 B dense configs wait for ROADMAP.md, queue 1, item 12."""
+The port lists the architectures it runs: the dense, MoE, hybrid and
+xLSTM families on tokens, and the audio and vision frontends. The 72-405 B
+dense configs wait for ROADMAP.md, queue 1, item 12b."""
 from __future__ import annotations
 
 import importlib
@@ -16,7 +16,9 @@ _MODULES: Dict[str, str] = {
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "llama3-8b": "llama3_8b",
+    "hubert-xlarge": "hubert_xlarge",
     "xlstm-350m": "xlstm_350m",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
     "kvstore-demo": "kvstore_demo",       # Memcached-analogue workload
     "lm-100m": "lm_100m",                 # end-to-end trainable ~100M example
 }

@@ -1,12 +1,19 @@
 """The port's model: ``init_params``, ``init_cache``, ``forward``,
-``loss_fn`` and ``decode_step`` for the dense, MoE, hybrid and xLSTM
-families on tokens.
+``loss_fn`` and ``decode_step`` for every family of the reference.
 
 Counterpart of ``repro.models.transformer``: the same trees, key paths,
 shapes and dtypes, with per-layer weights stacked on leading axes.
 
   dense | moe  attention + (MLP | MoE) blocks; ``forward``'s ``aux`` sums
                the MoE layers' load-balancing losses.
+  audio        (hubert) the dense blocks, bidirectional where
+               ``cfg.causal`` is false and without RoPE, over precomputed
+               frame embeddings projected by ``frame_proj`` (no ``embed``);
+               it does not decode.
+  vlm          (llava) the dense blocks over precomputed patch embeddings
+               projected by ``patch_proj`` and prepended to the text
+               tokens; the loss covers the text positions only, and
+               decoding continues after the patch-prefixed prefill.
   hybrid       (zamba2) Mamba2 mixer layers; one *shared* attention + MLP
                block (one weight set) runs before every ``attn_every``-layer
                group, with a KV cache of its own per group.
@@ -30,8 +37,8 @@ as the reference's ``jax.checkpoint`` does: ``"full"`` saves nothing of a
 layer, ``"dots"`` saves its matrix products. ``decode_step`` writes the
 caches and recurrent states it is given in place and returns them.
 
-The audio and vision frontends (families ``audio`` and ``vlm``) wait for
-ROADMAP.md, queue 1, item 12, as do the reference's sharding hints.
+The reference's sharding hints are not ported (ROADMAP.md, queue 1, item
+12c).
 """
 from __future__ import annotations
 
@@ -50,15 +57,11 @@ from repro_torch.models.common import (cross_entropy, cross_entropy_sharded,
 from repro_torch.models.mlp import mlp_apply, mlp_init, moe_apply, moe_init
 
 Params = Dict[str, Any]
-_ATTN_FAMILIES = ("dense", "moe")
+_ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
+_KV_FAMILIES = ("dense", "moe", "vlm")      # attention families that decode
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.frontend != "none" or cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} with frontend {cfg.frontend!r} is not "
-            "ported yet (ROADMAP.md, queue 1, item 12); the port runs the "
-            "dense, moe, hybrid and ssm families on tokens")
     if cfg.family not in _ATTN_FAMILIES + ("hybrid", "ssm"):
         raise ValueError(cfg.family)
 
@@ -75,7 +78,9 @@ def _ssm_groups(cfg: ModelConfig):
 # ========================================================= initialization
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     """Random parameters on ``device`` (the card unless given). The blocks
-    are drawn first, then the embedding, then the head."""
+    are drawn first, then the embedding (``frame_proj`` in its place under
+    the audio frontend), then the head, then ``patch_proj`` under the
+    vision frontend."""
     _check_ported(cfg)
     dev = resolve_device(device)
     draws = Stream(seed, dev)
@@ -105,10 +110,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
                          "mlstm": xlstm.mlstm_init(draws, cfg, (G, K - 1))}
         p["blocks_s"] = {"norm": ones(G, D),
                          "slstm": xlstm.slstm_init(draws, cfg, (G,))}
-    p["embed"] = draws.truncated_normal((cfg.vocab_size, D), 0.02, pdt)
+    if cfg.frontend == "audio_frames":
+        p["frame_proj"] = dense_init(draws, (), D, D, pdt)
+    else:
+        p["embed"] = draws.truncated_normal((cfg.vocab_size, D), 0.02, pdt)
     p["final_norm"] = ones(D)
     if not cfg.tie_embeddings:
         p["head"] = dense_init(draws, (), D, cfg.vocab_size, pdt)
+    if cfg.frontend == "vision_patches":
+        p["patch_proj"] = dense_init(draws, (), D, D, pdt)
     return p
 
 
@@ -116,8 +126,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device=None) -> Dict[str, torch.Tensor]:
     """Decode cache sized for ``max_seq`` positions, on ``device`` (the
     card unless given): the KV caches zero-filled, the recurrent states at
-    their initial values."""
+    their initial values. The audio family does not decode and raises the
+    reference's ``ValueError``."""
     _check_ported(cfg)
+    if cfg.family == "audio":
+        raise ValueError(f"family {cfg.family} does not decode")
     dev = resolve_device(device)
     cdt = dtype_of(cfg.compute_dtype)
     kv = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
@@ -128,7 +141,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     def rep(lead: tuple, a: torch.Tensor) -> torch.Tensor:
         return a.expand(lead + a.shape).contiguous()
 
-    if cfg.family in _ATTN_FAMILIES:
+    if cfg.family in _KV_FAMILIES:
         return {"k": zeros(cfg.n_layers, *kv), "v": zeros(cfg.n_layers, *kv)}
     if cfg.family == "hybrid":
         G = cfg.n_layers // cfg.attn_every
@@ -146,9 +159,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 # ================================================================ forward
 def _embed_inputs(p: Params, batch: Dict[str, torch.Tensor],
-                  cfg: ModelConfig) -> torch.Tensor:
-    """The token embeddings (B,S,D) in the compute dtype."""
-    return p["embed"][batch["tokens"]].to(dtype_of(cfg.compute_dtype))
+                  cfg: ModelConfig):
+    """(x (B,S,D) in the compute dtype, the loss mask or None, the label
+    offset): the projected frames under the audio frontend; under the
+    vision frontend the projected patches (B,P,D) before the token
+    embeddings, the offset P."""
+    cdt = dtype_of(cfg.compute_dtype)
+    if cfg.frontend == "audio_frames":
+        x = batch["frames"].to(cdt) @ p["frame_proj"].to(cdt)
+        return x, batch.get("mask"), 0
+    tok = p["embed"][batch["tokens"]].to(cdt)
+    if cfg.frontend == "vision_patches":
+        patches = batch["patches"].to(cdt) @ p["patch_proj"].to(cdt)
+        return torch.cat([patches, tok], dim=1), batch.get("mask"), \
+            patches.shape[1]
+    return tok, batch.get("mask"), 0
 
 
 def _head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -201,33 +226,12 @@ def _maybe_remat(fn: Callable, remat: str) -> Callable:
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)  # "full"
 
 
-def _maybe_remat(fn: Callable, remat: str) -> Callable:
-    """``fn`` under the activation-checkpoint policy ``remat``."""
-    if remat == "none" or not remat:
-        return fn
-    if remat == "dots":
-        try:
-            from torch.utils.checkpoint import \
-                create_selective_checkpoint_contexts
-        except ImportError as e:
-            raise NotImplementedError(
-                "remat='dots' needs torch.utils.checkpoint's selective "
-                "checkpointing, which this PyTorch lacks (ROADMAP.md, "
-                "queue 1, item 7b)") from e
-
-        def context():
-            return create_selective_checkpoint_contexts(_save_products)
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
-                                     context_fn=context)
-    return lambda *a: checkpoint(fn, *a, use_reentrant=False)  # "full"
-
-
 def forward(p: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             remat: str = "none", return_cache: bool = False):
     """Full-sequence forward. Returns (logits, aux_loss, cache|None); the
     cache holds ``init_cache``'s leaves, sized to the sequence."""
     _check_ported(cfg)
-    x = _embed_inputs(p, batch, cfg)
+    x, _, _ = _embed_inputs(p, batch, cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -325,10 +329,13 @@ def forward(p: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 def loss_fn(p: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             remat: str = "none"):
     """(loss, {"ce", "aux"}): mean next-token cross-entropy in float32 over
-    ``batch["labels"]`` (masked by ``batch["mask"]`` when given), plus the
-    MoE aux loss weighted by ``router_aux_weight`` per layer."""
+    ``batch["labels"]`` (masked by ``batch["mask"]`` when given; under the
+    vision frontend over the text positions after the patch prefix), plus
+    the MoE aux loss weighted by ``router_aux_weight`` per layer."""
     logits, aux, _ = forward(p, batch, cfg, remat=remat)
     labels = batch["labels"]
+    if cfg.frontend == "vision_patches":
+        logits = logits[:, cfg.n_patches:]
     mask = batch.get("mask")
     if cfg.shard_hints:
         ce = cross_entropy_sharded(logits, labels, mask)
@@ -346,12 +353,16 @@ def decode_step(p: Params, token: torch.Tensor, pos: int,
 
     Each layer writes its new k/v, or its new recurrent state, into
     ``cache`` in place (layer views of the stacked tensors), so the
-    returned cache is the one passed in."""
+    returned cache is the one passed in. Under the vision frontend ``pos``
+    counts the patch prefix. The audio family raises the reference's
+    ``ValueError``."""
     _check_ported(cfg)
     x = p["embed"][token][:, None, :].to(dtype_of(cfg.compute_dtype))
     eps = cfg.norm_eps
+    if cfg.family == "audio":
+        raise ValueError(f"family {cfg.family} does not decode")
 
-    if cfg.family in _ATTN_FAMILIES:
+    if cfg.family in _KV_FAMILIES:
         for i, layer in enumerate(_unstack(p["blocks"], cfg.n_layers)):
             h, _, _ = attn_decode(
                 layer["attn"], rmsnorm(x, layer["norm1"], eps),

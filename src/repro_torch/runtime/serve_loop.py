@@ -8,7 +8,11 @@ reference's numpy stream (``np.random.default_rng(seed + 1)``: one uniform
 a token for the strike decision, then ``MemoryDomain.inject``'s draws), so
 both packages strike the same words from the same seed. Decoding reads
 the domain's payload, struck and scrubbed as it is; detected words are
-counted, not reloaded, as in the reference.
+counted, not reloaded, as in the reference. The prefill's batch holds
+tokens only, so the audio and vision frontends fail there on the missing
+frames or patches (``KeyError``), as the reference's do; a VLM is served
+by composing ``make_prefill_step`` on tokens and patches with
+``make_serve_step``.
 """
 from __future__ import annotations
 

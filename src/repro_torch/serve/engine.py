@@ -118,7 +118,7 @@ def paged_decode_logits(params, pool_k: torch.Tensor, pool_v: torch.Tensor,
     ones included, as the reference's does: under a capacity that drops
     tokens a slot's logits can differ from its batch-1 ``decode_step``."""
     _check_ported(cfg)
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"paged decode supports dense/moe/vlm, "
                          f"not {cfg.family!r}")
     dh, H = cfg.head_dim, cfg.n_heads
@@ -180,7 +180,10 @@ def prefill_write(params, pool_k: torch.Tensor, pool_v: torch.Tensor,
     tokens: (1, Sb) int64, the prompt padded with zeros to whole pages;
     pages: (Sb // page_size,) int64. Returns (first greedy token, ok) as
     0-d tensors. The padded tail's K/V are zeroed, so the pages hold what
-    the contiguous oracle's zero-initialised cache holds, bit for bit."""
+    the contiguous oracle's zero-initialised cache holds, bit for bit.
+    The prompt carries tokens only, so under the vision frontend this
+    fails on the missing patches (``KeyError``), as the reference's
+    does."""
     logits, _, cache = forward(params, {"tokens": tokens}, cfg,
                                return_cache=True)
     last = logits[0, true_len - 1]

@@ -2,9 +2,9 @@
 device pools that register as their own ``MemoryDomain`` root.
 
 Counterpart of ``repro.serve.paged_kv``, for the attention-cache families
-the port runs, dense and MoE. The hybrid and xLSTM families keep
-recurrent state, not pages, and raise the reference's ``ValueError``; VLM
-paged serving waits for its frontend (ROADMAP.md, queue 1, item 12).
+dense, MoE and VLM. The hybrid and xLSTM families keep recurrent state,
+not pages, and the audio family does not decode: they raise the
+reference's ``ValueError``.
 Layout: two pools ``(n_layers, n_pages, page_size, n_kv_heads,
 head_dim)`` (keys and values), torch tensors in the compute dtype on the
 device the cache was made for. Page 0 is the reserved *null* page:
@@ -48,10 +48,6 @@ class PagedKVCache:
             raise ValueError(
                 f"paged KV serving supports attention-cache families "
                 f"(dense/moe/vlm), not {cfg.family!r}")
-        if cfg.family == "vlm":
-            raise NotImplementedError(
-                "paged KV serving in the port runs the dense and moe "
-                "families; VLM waits for ROADMAP.md, queue 1, item 12")
         if n_pages < 2:
             raise ValueError("need at least one real page beside the null "
                              "page")

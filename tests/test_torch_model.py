@@ -111,9 +111,23 @@ def test_lm_batch_equal_reference(arch):
 
 
 def test_make_batch_of_other_frontends_raises():
-    cfg = get_tiny("llama3-8b").replace(frontend="audio_frames")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        synthetic.make_batch(cfg, ShapeSpec("c", 8, 1, "train"), device=CPU)
+    """The frontend, not the family, picks the batch: tiny llama3-8b under
+    the audio and vision frontends gets the reference's frames or patches;
+    a sequence with no room for text after the patches raises in both."""
+    for frontend, kw in (("audio_frames", {}),
+                         ("vision_patches", {"n_patches": 5})):
+        cfg = get_tiny("llama3-8b").replace(frontend=frontend, **kw)
+        jcfg = jget_tiny("llama3-8b").replace(frontend=frontend, **kw)
+        got = synthetic.make_batch(cfg, ShapeSpec("c", 8, 2, "train"),
+                                   seed=4, device=CPU)
+        want = jsyn.make_batch(jcfg, JShapeSpec("c", 8, 2, "train"), seed=4)
+        assert sorted(got) == sorted(want)
+        for k in got:
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    with pytest.raises(AssertionError):
+        jsyn.make_batch(jcfg, JShapeSpec("c", 5, 1, "train"))
+    with pytest.raises(ValueError, match="no text"):
+        synthetic.make_batch(cfg, ShapeSpec("c", 5, 1, "train"), device=CPU)
 
 
 def _pair(arch: str, compute_dtype: str, **kw):
@@ -177,10 +191,19 @@ def test_forward_tied_embeddings_and_bias_match_reference():
 
 
 def test_forward_of_other_families_raises():
-    cfg = get_tiny("llama3-8b")
+    """Where the reference's ``forward`` fails, the port's fails alike: the
+    vlm family on a tree with no blocks, the vision frontend on a batch
+    with no patches (``KeyError`` naming the missing key) and an unknown
+    family (``ValueError``)."""
+    cfg, jcfg = get_tiny("llama3-8b"), jget_tiny("llama3-8b")
     p = {"embed": torch.zeros(4, 2)}
+    jp = {"embed": jnp.zeros((4, 2))}
     tokens = {"tokens": torch.zeros(1, 2, dtype=torch.int64)}
-    for bad in (cfg.replace(family="vlm"),
-                cfg.replace(frontend="vision_patches")):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            forward(p, tokens, bad)
+    jtokens = {"tokens": jnp.zeros((1, 2), jnp.int32)}
+    for kw in ({"family": "vlm"}, {"frontend": "vision_patches"},
+               {"family": "bogus"}):
+        with pytest.raises((KeyError, ValueError)) as want:
+            jforward(jp, jtokens, jcfg.replace(**kw))
+        with pytest.raises(want.type) as got:
+            forward(p, tokens, cfg.replace(**kw))
+        assert got.value.args == want.value.args, kw

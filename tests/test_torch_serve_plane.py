@@ -182,9 +182,11 @@ def test_allocator_capacity_and_double_alloc_guards():
     with pytest.raises(ValueError, match="null page"):
         PagedKVCache(CFG, n_pages=1, page_size=8, slots=1,
                      max_pages_per_slot=1, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PagedKVCache(CFG.replace(family="vlm"), n_pages=4, page_size=8,
-                     slots=1, max_pages_per_slot=1, device=CPU)
+    vlm = dict(n_pages=4, page_size=8, slots=1, max_pages_per_slot=1)
+    got = PagedKVCache(CFG.replace(family="vlm"), device=CPU, **vlm)
+    want = JPagedKVCache(jget_tiny("llama3-8b").replace(family="vlm"), **vlm)
+    assert tuple(got.pool_k.shape) == want.pool_k.shape
+    assert got.free_pages == want.free_pages
     with pytest.raises(ValueError, match="attention-cache"):
         PagedKVCache(CFG.replace(family="ssm"), n_pages=4, page_size=8,
                      slots=1, max_pages_per_slot=1, device=CPU)
