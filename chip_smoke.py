@@ -226,6 +226,37 @@ Needs one CUDA card (an H100: the kernels build for ``sm_90a``) and
    embed (frame or patch projection, embedding, head), attn, mlp and
    norm regions after the determinism check.
 
+14. the 72-405 B dense configs and llava whole, after phase 13, each
+   path's launches counted on their own (``dense_large_*``): (a) tiny
+   qwen2-72b, nemotron-4-340b and llama3-405b in float32 compute on the
+   card and on the CPU from one seed: parameters equal bit for bit,
+   ``forward`` logits and 16 ``decode_step`` logits within 1e-5 x
+   max|logit|, ``serve_batch`` on tiny qwen2-72b under detect_recover
+   with strikes (tokens and report equal), and the per-group MoE dispatch
+   (``_moe_apply_local``) at 1, 2 and 4 data groups on tiny
+   granite-moe-3b-a800m; (b) at full width, qwen2-72b with 6 of its 80
+   layers, llama3-405b with 1 of 126, nemotron-4-340b with 1 of 96 and
+   llava-next-mistral-7b whole (32 layers): decode held against
+   ``forward`` within 8 bf16 ulps, and a planted fault (every decode
+   position one early) read beyond them, a clean run of 32 tokens after a
+   prefill of 4 x 128 tokens (llava: 2,880 patches + 128 tokens), llava
+   also under detect_recover as 1 replica x 8 shards (two strikes
+   flagged, reloaded from the clean copy bit-exact); then
+   ``ShardedMemoryDomain`` under typical_server, 1 replica x 8 shards: a
+   single-bit strike corrected and a double-bit strike flagged, one warm
+   scrub's time, resident bytes and peak, and the same 32 tokens from
+   ``state(0)`` under phase 8's strike stream with a scrub every 8 tokens
+   and one after the last (every single-bit strike corrected, every
+   double-bit one flagged; the tokens beside the clean run's), ms per
+   token and tokens/s; after the last scrub the payload equal bit for bit
+   to the parameters made again from the seed, and a decode from it equal
+   to the clean run's tokens; (c) host
+   only: each registry config at its full size from ``meta`` shapes,
+   placed by ``sharding.rules`` on ``AbstractMesh`` SINGLE_POD and
+   MULTI_POD, with FSDP and ``tp_only``: one device's share of the
+   parameters and of the parameters plus moments, beside the card's
+   memory.
+
 Phase 3c holds the port's random draws (tiny llama3-8b and kvstore-demo
 parameters, the kv-store's query keys, the four tiny MoE, hybrid and
 xLSTM configs' parameters and 2**20 ``Stream.normal`` draws) made on the
@@ -393,6 +424,23 @@ VLM_PAGE, VLM_PAGED_STEPS = 16, 16
 VLM_CAMPAIGN_BATCH = 2                 # (d): query of 2 x (2,880 + 256)
 FRONTEND_REGIONS = ("params/embed", "params/attn", "params/mlp",
                     "params/norm")
+# phase 14: the 72-405 B dense configs and llava whole, at full width
+# through ShardedMemoryDomain (typical_server, 1 replica x 8 shards), the
+# depth cut to keep the payload near llama3-8b's 16 GB (phase 11): the
+# payload, the struck copy of a leaf and a shard's scrub buffers share the
+# card
+DENSE_LARGE = (("qwen2-72b", 6), ("llama3-405b", 1), ("nemotron-4-340b", 1),
+               (VLM_ARCH, None))           # (arch, layers kept; None: whole)
+DENSE_LARGE_TINY = ("qwen2-72b", "nemotron-4-340b", "llama3-405b")
+DENSE_LARGE_SHARDS = 8
+DENSE_LARGE_BATCH, DENSE_LARGE_PROMPT = 4, 128
+DENSE_LARGE_NEW, DENSE_LARGE_SCRUB = 32, 8
+DENSE_LARGE_TINY_REL = 1e-5            # (a) card vs CPU, float32 compute
+DENSE_LARGE_MOE_GROUPS = (1, 2, 4)
+# decode vs forward, in bf16 ulps: above the sound decodes' readings and
+# below a planted fault's (every step one position early), which each run
+# reads too (PERF.md, PR 22)
+DENSE_LARGE_ULPS, DENSE_LARGE_PLANTED_SHIFT = 8, -1
 # push results are held to the plain version's at rtol + ATOL_REL x max|y|:
 # both sum in float64 and round once, but the kernels' atomics add in an
 # order that changes from run to run, which can move a rounding by one ulp
@@ -2348,18 +2396,22 @@ def _prefilled(cfg, params, prompts, new_tokens: int):
     return torch.argmax(last, dim=-1), _with_headroom(cache, full)
 
 
-def _check_decode_logits(cfg, params, prompts) -> None:
+def _check_decode_logits(cfg, params, prompts, name: str = "serve",
+                         shift: int = 0) -> tuple:
     """The first LOGIT_CHECK_TOKENS decode positions against a teacher-
     forced ``forward`` over the prompt and the generated tokens: prints the
     max |diff| of the logits; the greedy tokens must agree wherever the
-    forward's top-2 margin exceeds it."""
+    forward's top-2 margin exceeds it. Returns (max |diff|, max|logit|).
+    ``shift`` plants a fault: each step decodes at its position plus
+    ``shift`` (cache slot and RoPE offset both), and the token check is not
+    made."""
     from repro_torch.models import decode_step, forward
     S0 = prompts.shape[1]
     token, full = _prefilled(cfg, params, prompts, LOGIT_CHECK_TOKENS)
     gen, dec = [], []
     for t in range(LOGIT_CHECK_TOKENS):
         gen.append(token)
-        lg, full = decode_step(params, token, S0 + t, full, cfg)
+        lg, full = decode_step(params, token, S0 + t + shift, full, cfg)
         dec.append(lg.float())
         token = torch.argmax(lg, dim=-1)
     seq = torch.cat([prompts, torch.stack(gen, dim=1)], dim=1)
@@ -2369,13 +2421,15 @@ def _check_decode_logits(cfg, params, prompts) -> None:
     top2 = ref.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > diff
     agree = bool((dec.argmax(-1) == ref.argmax(-1))[clear].all())
-    print(f"serve decode vs forward ({LOGIT_CHECK_TOKENS} positions x "
+    print(f"{name} decode vs forward ({LOGIT_CHECK_TOKENS} positions x "
           f"{prompts.shape[0]}): max|diff|={diff:.4g} max|logit|="
           f"{float(ref.abs().max()):.4g} positions with top-2 margin above "
           f"it: {int(clear.sum())} of {clear.numel()}, tokens equal there: "
           f"{agree}")
-    if not agree:
-        raise AssertionError("decode and forward disagree on a clear token")
+    if not agree and not shift:
+        raise AssertionError(f"{name}: decode and forward disagree on a "
+                             "clear token")
+    return diff, float(ref.abs().max())
 
 
 def profile_decode(cfg, params, prompts) -> None:
@@ -4533,18 +4587,21 @@ def _vlm_serve(cfg, params, batch, name: str):
     return torch.stack(out, 1), rep, prefill_ms, tok_ms, strikes, wall_ms
 
 
-def _vlm_decode_check(cfg, params, batch) -> None:
+def _vlm_decode_check(cfg, params, batch, name: str = "frontends vlm",
+                      shift: int = 0) -> tuple:
     """The first LOGIT_CHECK_TOKENS decode positions after the
     patch-prefixed prefill against a ``forward`` over the patches, the
     text and the generated tokens: max |diff| printed; greedy tokens equal
-    wherever the forward's top-2 margin exceeds it."""
+    wherever the forward's top-2 margin exceeds it. Returns (max |diff|,
+    max|logit|). ``shift`` plants a fault as ``_check_decode_logits``'s
+    does."""
     from repro_torch.models import decode_step, forward
     token, cache, S0, _ = _vlm_prefill(cfg, params, batch,
                                        LOGIT_CHECK_TOKENS)
     gen, dec = [], []
     for t in range(LOGIT_CHECK_TOKENS):
         gen.append(token)
-        lg, cache = decode_step(params, token, S0 + t, cache, cfg)
+        lg, cache = decode_step(params, token, S0 + t + shift, cache, cfg)
         dec.append(lg.float())
         token = torch.argmax(lg, dim=-1)
     del cache
@@ -4556,14 +4613,15 @@ def _vlm_decode_check(cfg, params, batch) -> None:
     top2 = ref.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > diff
     agree = bool((dec.argmax(-1) == ref.argmax(-1))[clear].all())
-    print(f"frontends vlm decode vs forward ({LOGIT_CHECK_TOKENS} positions"
+    print(f"{name} decode vs forward ({LOGIT_CHECK_TOKENS} positions"
           f" x {seq.shape[0]} after {S0} prefilled): max|diff|={diff:.4g} "
           f"max|logit|={float(ref.abs().max()):.4g} positions with top-2 "
           f"margin above it: {int(clear.sum())} of {clear.numel()}, tokens "
           f"equal there: {agree}")
-    if not agree:
-        raise AssertionError("frontends vlm: decode and forward disagree "
-                             "on a clear token")
+    if not agree and not shift:
+        raise AssertionError(f"{name}: decode and forward disagree on a "
+                             "clear token")
+    return diff, float(ref.abs().max())
 
 
 def _vlm_paged_check(cfg, params, batch) -> None:
@@ -4736,6 +4794,471 @@ def run_frontends(dev, by_path: dict) -> None:
         raise AssertionError(f"phase 13 parts failed: {failed}")
 
 
+# ------------------------------------ 14. the 72-405 B dense configs, llava
+def _dense_large_tiny_run(cfg, device):
+    """Tiny ``cfg`` on one device from one seed: (parameters, forward
+    logits, FAMILY_DECODE_STEPS decode logits), results on the CPU."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.draws import Stream
+    from repro_torch.models import decode_step, forward, init_cache, \
+        init_params
+    p = init_params(cfg, seed=SEED, device=device)
+    batch = lm_batch(cfg, 2, FAMILY_TINY_TOKENS, SEED + 2, device=device)
+    logits = forward(p, batch, cfg)[0]
+    toks = Stream(SEED + 1, device).randint(cfg.vocab_size,
+                                            (2, FAMILY_DECODE_STEPS))
+    cache = init_cache(cfg, 2, FAMILY_DECODE_STEPS, device=device)
+    dec = []
+    for t in range(FAMILY_DECODE_STEPS):
+        lg, cache = decode_step(p, toks[:, t], t, cache, cfg)
+        dec.append(lg)
+    return p, logits.cpu(), torch.stack(dec, 1).cpu()
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|, on the CPU."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+def dense_large_card_vs_cpu(dev, by_path: dict) -> None:
+    """(a) Tiny qwen2-72b, nemotron-4-340b and llama3-405b in float32
+    compute on the card and on the CPU from one seed: parameters equal bit
+    for bit, ``forward`` logits and FAMILY_DECODE_STEPS ``decode_step``
+    logits within DENSE_LARGE_TINY_REL x max|logit|; ``serve_batch`` on
+    tiny qwen2-72b (QKV bias) under detect_recover with strikes, tokens
+    and report equal; ``_moe_apply_local`` at DENSE_LARGE_MOE_GROUPS data
+    groups on tiny granite-moe-3b-a800m, y and aux within
+    DENSE_LARGE_TINY_REL."""
+    import dataclasses
+    from repro_torch.configs import get_tiny
+    from repro_torch.core import DESIGN_POINTS, tree
+    from repro_torch.draws import Stream
+    from repro_torch.kernels import _build
+    from repro_torch.sharding.mesh import AbstractMesh
+    from repro_torch.models import init_params, mlp
+    from repro_torch.runtime.serve_loop import serve_batch
+    _build.reset_launches()
+    bad = []
+    for arch in DENSE_LARGE_TINY:
+        cfg = get_tiny(arch).replace(compute_dtype="float32")
+        card = _dense_large_tiny_run(cfg, dev)
+        cpu = _dense_large_tiny_run(cfg, torch.device("cpu"))
+        unequal = sum(
+            not torch.equal(_bytes(a.cpu()), _bytes(b))
+            for a, b in zip(tree.leaves(card[0]), tree.leaves(cpu[0])))
+        lg, dec = _rel(card[1], cpu[1]), _rel(card[2], cpu[2])
+        print(f"dense_large tiny {arch} card vs cpu (float32): unequal "
+              f"parameter leaves={unequal} of {len(tree.leaves(cpu[0]))} "
+              f"forward max|diff|/max|logit|={lg:.3g} decode "
+              f"{FAMILY_DECODE_STEPS} steps max|diff|/max|logit|={dec:.3g}")
+        if unequal or lg > DENSE_LARGE_TINY_REL or dec > DENSE_LARGE_TINY_REL:
+            bad.append(arch)
+    cfg = get_tiny("qwen2-72b").replace(compute_dtype="float32")
+    policy = dataclasses.replace(DESIGN_POINTS["detect_recover"](),
+                                 scrub_interval=4)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        p = init_params(cfg, seed=SEED, device=device)
+        prompts = Stream(SEED + 1, device).randint(cfg.vocab_size, (4, 16))
+        toks, rep = serve_batch(cfg, p, prompts, 12, policy=policy,
+                                error_rate_per_token=0.5, seed=SERVE_SEED)
+        runs.append((toks.cpu(), rep))
+    same = torch.equal(runs[0][0], runs[1][0]) and runs[0][1] == runs[1][1]
+    print(f"dense_large tiny qwen2-72b serve_batch detect_recover card vs "
+          f"cpu: tokens and report equal={same} report={runs[0][1]}")
+    if not same or not runs[0][1].injected:
+        bad.append("serve_batch")
+    cfg = get_tiny("granite-moe-3b-a800m").replace(compute_dtype="float32")
+    x = torch.from_numpy(np.random.default_rng(SEED + 4).standard_normal(
+        (4, 16, cfg.d_model)).astype(np.float32))
+    layer0 = [(d, tree.map_leaves(lambda t: t[0], init_params(
+        cfg, seed=SEED, device=d)["blocks"]["moe"]))
+        for d in (dev, torch.device("cpu"))]
+    for g in DENSE_LARGE_MOE_GROUPS:
+        mesh = AbstractMesh((g, 1), ("data", "model"))
+        out = [mlp._moe_apply_local(p, x.to(d), cfg, mesh, "data")
+               for d, p in layer0]
+        y, aux = _rel(out[0][0], out[1][0]), abs(
+            float(out[0][1]) - float(out[1][1])) / abs(float(out[1][1]))
+        print(f"dense_large tiny _moe_apply_local granite g={g} card vs cpu:"
+              f" y max|diff|/max|y|={y:.3g} aux rel diff={aux:.3g}")
+        if y > DENSE_LARGE_TINY_REL or aux > DENSE_LARGE_TINY_REL:
+            bad.append(f"moe g={g}")
+    _path_launches("dense_large_tiny", {"parity_encode", "parity_check",
+                                        "bitflip"}, by_path)
+    if bad:
+        raise AssertionError(f"dense_large tiny: card and CPU differ in "
+                             f"{bad}")
+
+
+def _dense_large_inputs(cfg, dev) -> dict:
+    """DENSE_LARGE_BATCH prompts of DENSE_LARGE_PROMPT tokens; for the VLM
+    its 2,880 patches before them (``vlm_batch``, as phase 13 composes
+    it)."""
+    from repro_torch.data.synthetic import vlm_batch
+    from repro_torch.draws import Stream
+    if cfg.family == "vlm":
+        return vlm_batch(cfg, DENSE_LARGE_BATCH,
+                         cfg.n_patches + DENSE_LARGE_PROMPT, SEED, device=dev)
+    return {"tokens": Stream(SEED + 1, dev).randint(
+        cfg.vocab_size, (DENSE_LARGE_BATCH, DENSE_LARGE_PROMPT))}
+
+
+def _dense_large_decode(cfg, params_of, batch, fault=None):
+    """The prefill (with the patches of a VLM), then DENSE_LARGE_NEW
+    ``make_serve_step`` tokens, each from ``params_of()``; ``fault(t)``
+    runs before step t. Returns (tokens, prefill ms, ms a token)."""
+    from repro_torch.runtime.steps import make_serve_step
+    serve = make_serve_step(cfg)
+    if cfg.family == "vlm":
+        token, cache, pos, prefill_ms = _vlm_prefill(
+            cfg, params_of(), batch, DENSE_LARGE_NEW)
+    else:
+        (token, cache), prefill_ms = _timed(lambda: _prefilled(
+            cfg, params_of(), batch["tokens"], DENSE_LARGE_NEW))
+        pos = batch["tokens"].shape[1]
+    out, tok_ms = [], []
+    for t in range(DENSE_LARGE_NEW):
+        if fault is not None:
+            fault(t)
+        out.append(token)
+        (cache, token, pos), ms = _timed(
+            lambda: serve(params_of(), cache, token, pos))
+        tok_ms.append(ms)
+    return torch.stack(out, 1), prefill_ms, tok_ms
+
+
+class _ShardedFaults:
+    """Phase 8's strike stream on a sharded domain's replica 0: one uniform
+    a token, a strike with probability SERVE_ERROR_RATE on a protectable
+    leaf drawn byte-weighted across the shards (as
+    ``ShardedMemoryDomain.inject`` draws it) with the policy's error model,
+    its plan kept; a scrub every DENSE_LARGE_SCRUB tokens after the
+    first."""
+
+    def __init__(self, sh):
+        self.sh = sh
+        self.rng = np.random.default_rng(SERVE_SEED + 1)
+        self.specs = [ls for dom in sh.shards[0]
+                      for ls in dom.spec.protectable]
+        w = np.array([ls.nbytes for ls in self.specs], dtype=np.float64)
+        self.w = w / w.sum()
+        self.strikes, self.scrub_ms, self.scrub_steps = [], [], []
+        self.corrected = self.flagged = 0
+
+    def scrub(self, t: int) -> None:
+        """One scrub of the domain after step ``t``'s strike, its counts
+        added up."""
+        (self.sh, rep), ms = _timed(self.sh.scrub)
+        c, u = rep.totals()
+        self.corrected += c
+        self.flagged += u
+        self.scrub_ms.append(ms)
+        self.scrub_steps.append(t)
+
+    def expected(self) -> tuple:
+        """(corrected, flagged) that the scrubs so far must have counted:
+        each word struck by one bit corrected once, at the first scrub
+        after it; a word struck by two left as it is, so flagged again at
+        every later scrub."""
+        last = self.scrub_steps[-1]
+        return (_secded_expected(self.strikes, last)[0],
+                sum(_secded_expected(self.strikes, t)[1]
+                    for t in self.scrub_steps))
+
+    def undo_doubles(self) -> int:
+        """Strikes the bits of every word struck by two back out (XOR is
+        its own inverse), as a reload of those words would; returns how
+        many words."""
+        from repro_torch.core import InjectionPlan
+        bits = {}
+        for _, s, plan in self.strikes:
+            for w, b in zip(plan.word_idx.tolist(), plan.bit_idx.tolist()):
+                if w >= 0 and w * 64 + b < s.nbytes * 8:
+                    bits.setdefault((s.path, w), []).append(b)
+        doubles = [(k, b) for k, b in bits.items() if len(b) == 2]
+        for (path, w), b in doubles:
+            self.sh = self.sh.apply_plan(path, InjectionPlan(
+                np.full(2, w, np.int32), np.array(b, np.int32), hard=False))
+        return len(doubles)
+
+    def __call__(self, t: int) -> None:
+        from repro_torch.core import InjectionPlan
+        em = self.sh.policy.error_model
+        if self.rng.random() < SERVE_ERROR_RATE:
+            s = self.specs[self.rng.choice(len(self.specs), p=self.w)]
+            plan = InjectionPlan.sample(self.rng, s.rows * 256, 1, False,
+                                        em.multi_bit_fraction,
+                                        em.adjacent_fraction)
+            self.sh = self.sh.apply_plan(s.path, plan)
+            self.strikes.append((t, s, plan))
+        if t > 0 and t % DENSE_LARGE_SCRUB == 0:
+            self.scrub(t)
+
+
+def _bf16_ulps(diff: float, top: float) -> float:
+    """``diff`` in bf16 ulps at magnitude ``top`` (8 significant bits)."""
+    return diff / 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def _dense_large_parity(params, arch: str, by_path: dict) -> None:
+    """detect_recover over ``params`` as 1 replica x DENSE_LARGE_SHARDS:
+    a single-bit strike on each of the two largest leaves flagged by the
+    parity check, both reloaded from the clean copy (the untouched
+    parameters) bit-exact, a second scrub clean."""
+    from repro_torch.core import ShardedMemoryDomain, detect_recover, tree
+    from repro_torch.examples._common import same_bits
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    sh = ShardedMemoryDomain.protect(params, detect_recover(), n_replicas=1,
+                                     n_shards=DENSE_LARGE_SHARDS)
+    originals = dict(zip(sh.order, tree.leaves(params)))
+    one, two = _largest(sh, 2)
+    struck = sh.apply_plan(one, _plan(_words(sh, one) // 3, (11,)))
+    struck = struck.apply_plan(two, _plan(_words(sh, two) // 2, (40,)))
+    struck, rep = struck.scrub()
+    flagged = rep.needs_recovery()
+    healed, rec = struck.recover(rep, clean_copy=originals.__getitem__)
+    del struck
+    exact = same_bits(healed.state(0), params)
+    _, rep2 = healed.scrub()
+    del healed
+    _path_launches(f"dense_large_{arch}_detect_recover", _sharded_need(sh),
+                   by_path)
+    print(f"dense_large {arch} detect_recover 1x{DENSE_LARGE_SHARDS}: "
+          f"flagged={flagged} recovered="
+          f"{[(e['path'], e['action']) for e in rec]} bit-exact={exact} "
+          f"second_scrub={rep2.totals()}")
+    if flagged != {0: {one: 1, two: 1}} or exact is not True or \
+            [e["action"] for e in rec] != ["reload_clean_copy"] * 2 or \
+            rep2.totals() != (0, 0):
+        raise AssertionError(f"dense_large {arch} detect_recover: the "
+                             "strikes were not flagged and reloaded")
+
+
+def dense_large_full(dev, by_path: dict, arch: str, layers) -> None:
+    """(b) ``arch`` at full width, ``layers`` of its layers (None: whole):
+    decode held against ``forward`` within DENSE_LARGE_ULPS, and a planted
+    fault (decode positions shifted by DENSE_LARGE_PLANTED_SHIFT) beyond
+    it; a clean run of DENSE_LARGE_NEW tokens after a prefill of
+    DENSE_LARGE_BATCH x DENSE_LARGE_PROMPT (plus the VLM's patches); for
+    the VLM the detect_recover drill; then the parameters under
+    typical_server as 1 replica x DENSE_LARGE_SHARDS: a single-bit strike
+    corrected and a double-bit strike flagged, one warm scrub's time and
+    peak, and the same decode from ``state(0)`` under phase 8's strike
+    stream with a scrub every DENSE_LARGE_SCRUB tokens and one after the
+    last (every single-bit strike corrected, every double-bit one
+    flagged), its tokens beside the clean run's. After that scrub, with
+    the double-struck words struck back, the payload must equal the
+    parameters made again from the seed bit for bit, and a decode from it
+    must give the clean run's tokens: the tokens of the struck run may
+    differ only where a step read a strike before the scrub after it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ShardedMemoryDomain, tree, typical_server
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_params
+    whole = get_config(arch)
+    cfg = whole if layers is None else whole.replace(n_layers=layers)
+    params, init_ms = _timed(lambda: init_params(cfg, seed=SEED, device=dev))
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    payload = _leaf_bytes(params)
+    whole_bytes = _leaf_bytes(init_params(whole, device="meta"))
+    if layers is not None:
+        print(f"reduced: {arch} n_layers {whole.n_layers}->{layers} (whole "
+              f"it is {_gb(whole_bytes)} of {whole.param_dtype} "
+              f"parameters; width unchanged)")
+    batch = _dense_large_inputs(cfg, dev)
+    S0 = batch["tokens"].shape[1] + (cfg.n_patches if cfg.family == "vlm"
+                                     else 0)
+    print(f"dense_large {arch}: family={cfg.family} layers={cfg.n_layers} "
+          f"of {whole.n_layers} d_model={cfg.d_model} d_ff={cfg.d_ff} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} vocab={cfg.vocab_size} "
+          f"act={cfg.act} qkv_bias={cfg.qkv_bias} params={n_params} bytes="
+          f"{payload} ({cfg.param_dtype}) init_ms={init_ms:.1f} batch="
+          f"{DENSE_LARGE_BATCH} prefill={S0} positions new="
+          f"{DENSE_LARGE_NEW}")
+    check = _vlm_decode_check if cfg.family == "vlm" else \
+        (lambda c, p, b, name, shift=0: _check_decode_logits(
+            c, p, b["tokens"], name, shift))
+    diff, top = check(cfg, params, batch, name=f"dense_large {arch}")
+    planted, _ = check(cfg, params, batch, f"dense_large {arch} planted "
+                       f"fault (shift {DENSE_LARGE_PLANTED_SHIFT})",
+                       shift=DENSE_LARGE_PLANTED_SHIFT)
+    ulps, planted_ulps = _bf16_ulps(diff, top), _bf16_ulps(planted, top)
+    print(f"dense_large {arch} decode vs forward: {ulps:.2f} bf16 ulps at "
+          f"max|logit| {top:.4g} (limit {DENSE_LARGE_ULPS}); planted fault "
+          f"{planted_ulps:.2f}")
+    if ulps > DENSE_LARGE_ULPS or planted_ulps <= DENSE_LARGE_ULPS:
+        raise AssertionError(f"dense_large {arch}: decode is {ulps:.1f} "
+                             f"bf16 ulps from forward, the planted fault "
+                             f"{planted_ulps:.1f}; the limit "
+                             f"{DENSE_LARGE_ULPS} must lie between")
+    clean, _, clean_ms = _dense_large_decode(cfg, lambda: params, batch)
+    if cfg.family == "vlm":
+        _dense_large_parity(params, arch, by_path)
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sh, protect_ms = _timed(lambda: ShardedMemoryDomain.protect(
+        params, typical_server(), n_replicas=1,
+        n_shards=DENSE_LARGE_SHARDS))
+    del params            # the domain holds the only copy from here
+    # the drill strikes the two largest layer leaves: a struck copy of
+    # nemotron's 9.44 GB embedding or head would not fit beside the scrub
+    one, two = [p for p in _largest(sh, len(sh.order))
+                if p.startswith("blocks/")][:2]
+    struck = sh.apply_plan(one, _plan(_words(sh, one) // 3, (11,)))
+    struck = struck.apply_plan(two, _plan(_words(sh, two) // 2, (20, 21)))
+    fixed, rep = struck.scrub()
+    del struck, fixed
+    corr, unc = _counts(rep.domain_report())
+    drill = (corr[one] == 1 and sum(corr.values()) == 1
+             and unc[two] == 1 and sum(unc.values()) == 1)
+    del rep
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, scrub_ms = _timed(sh.scrub)
+    scrub_peak = torch.cuda.max_memory_allocated()
+    del out
+    print(f"dense_large {arch} typical_server 1x{DENSE_LARGE_SHARDS}: "
+          f"protect_ms={protect_ms:.1f} per-shard bytes="
+          f"{[_gb(x) for x in _shard_loads(sh)]} single-bit on {one} "
+          f"corrected={corr[one]} double-bit on {two} flagged={unc[two]} "
+          f"warm_scrub_ms={scrub_ms:.1f} resident={resident} "
+          f"scrub_peak_bytes={scrub_peak} ({_gb(scrub_peak)})")
+    faults = _ShardedFaults(sh)
+    del sh
+    torch.cuda.reset_peak_memory_stats()
+    _sync()
+    t0 = time.perf_counter()
+    toks, prefill_ms, tok_ms = _dense_large_decode(
+        cfg, lambda: faults.sh.state(0), batch, faults)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    serve_peak = torch.cuda.max_memory_allocated()
+    faults.scrub(DENSE_LARGE_NEW)      # the strikes after the last step's
+    single, double = faults.expected()
+    undone = faults.undo_doubles()
+    again = init_params(cfg, seed=SEED, device=dev)
+    unequal = [p for p, t in zip(faults.sh.order, tree.leaves(again))
+               if not torch.equal(_bytes(faults.sh.leaf(p)), _bytes(t))]
+    del again
+    torch.cuda.empty_cache()
+    redo = _dense_large_decode(cfg, lambda: faults.sh.state(0), batch)[0]
+    redo_equal = bool(torch.equal(redo, clean))
+    first_strike = min(t for t, _, _ in faults.strikes) \
+        if faults.strikes else DENSE_LARGE_NEW
+    same = (toks == clean).all(0)
+    first_diff = int((~same).nonzero()[0]) if not bool(same.all()) \
+        else None
+    med = float(np.median(tok_ms))
+    n_tok = DENSE_LARGE_BATCH * DENSE_LARGE_NEW
+    _path_launches(f"dense_large_{arch}_typical_server",
+                   _sharded_need(faults.sh), by_path)
+    print(f"dense_large {arch} serve typical_server: prefill_ms="
+          f"{prefill_ms:.2f} ({DENSE_LARGE_BATCH}x{S0} positions) "
+          f"ms_per_token_median={med:.3f} (min {min(tok_ms):.3f} max "
+          f"{max(tok_ms):.3f}; clean run {float(np.median(clean_ms)):.3f}) "
+          f"tokens_per_s={n_tok / wall_ms * 1e3:.1f} (wall_ms={wall_ms:.1f},"
+          f" prefill, strikes and scrubs included) decode_tokens_per_s="
+          f"{DENSE_LARGE_BATCH / med * 1e3:.1f} strikes={len(faults.strikes)}"
+          f" corrected={faults.corrected} flagged={faults.flagged} "
+          f"(expected {single} and {double} over the scrubs after steps "
+          f"{faults.scrub_steps}) scrub_ms_median="
+          f"{float(np.median(faults.scrub_ms)):.1f} first_strike_step="
+          f"{first_strike} tokens_equal_clean={first_diff is None} "
+          f"first_differing_step={first_diff} serve_peak_bytes={serve_peak}"
+          f" ({_gb(serve_peak)})")
+    print(f"dense_large {arch} after the last scrub ({undone} double-struck "
+          f"words struck back): payload bit-equal to the parameters made "
+          f"again from the seed={not unequal} (unequal leaves {unequal}); "
+          f"decode from it equals the clean run's tokens={redo_equal}")
+    if not drill:
+        raise AssertionError(f"dense_large {arch}: corrected {corr}, "
+                             f"flagged {unc}")
+    if (faults.corrected, faults.flagged) != (single, double) or \
+            not faults.strikes:
+        raise AssertionError(f"dense_large {arch}: corrected "
+                             f"{faults.corrected} flagged {faults.flagged}, "
+                             f"expected {single} and {double}")
+    if first_diff is not None and first_diff <= first_strike:
+        raise AssertionError(f"dense_large {arch}: tokens differ from the "
+                             f"clean run at step {first_diff}, before the "
+                             f"first strike (step {first_strike})")
+    if unequal or not redo_equal:
+        raise AssertionError(f"dense_large {arch}: after the last scrub the"
+                             f" payload differs in {unequal} or its decode "
+                             "from the clean run's tokens")
+    if toks.shape != (DENSE_LARGE_BATCH, DENSE_LARGE_NEW) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"dense_large {arch}: tokens "
+                             f"{tuple(toks.shape)} out of range")
+
+
+def dense_large_placements(dev, by_path: dict) -> None:
+    """(c) Host only, nothing allocated: each registry config at its full
+    size from ``meta`` shapes, on ``AbstractMesh`` SINGLE_POD and
+    MULTI_POD, with FSDP and with ``tp_only``: one device's share of the
+    parameters (``param_shardings``; every spec divides its dim, so every
+    device holds as much) and of the parameters plus the AdamW moments
+    (``opt_shardings``, in the config's moment dtype), beside this card's
+    memory."""
+    from repro_torch.configs import MULTI_POD, SINGLE_POD, get_config, \
+        list_archs
+    from repro_torch.core import tree
+    from repro_torch.sharding.mesh import AbstractMesh
+    from repro_torch.models import init_params
+    from repro_torch.models.common import dtype_of
+    from repro_torch.sharding import rules
+    cap = torch.cuda.get_device_properties(0).total_memory
+    print(f"dense_large placements (per device; card memory {cap} bytes)")
+
+    def per_device(shardings, leaves, itemsize=None) -> int:
+        return sum(int(np.prod(s.shard_shape(tuple(t.shape))))
+                   * (itemsize or t.element_size())
+                   for s, t in zip(tree.leaves(shardings), leaves))
+    for arch in list_archs():
+        cfg = get_config(arch)
+        p = init_params(cfg, device="meta")
+        leaves = tree.leaves(p)
+        msize = dtype_of(cfg.moment_dtype).itemsize
+        for name, mc in (("SINGLE_POD", SINGLE_POD), ("MULTI_POD", MULTI_POD)):
+            mesh = AbstractMesh(mc.shape, mc.axes)
+            moments = 2 * per_device(rules.opt_shardings(None, p, mesh, cfg)
+                                     ["m"], leaves, msize)
+            cols = []
+            for layout, tp_only in (("fsdp", False), ("tp_only", True)):
+                pb = per_device(rules.param_shardings(p, mesh, cfg,
+                                                      tp_only=tp_only), leaves)
+                cols.append(f"{layout} params={_gb(pb)} (fits: {pb <= cap})"
+                            f" +moments={_gb(pb + moments)} (fits: "
+                            f"{pb + moments <= cap})")
+            print(f"placement {arch} {name} (whole {_gb(_leaf_bytes(p))}, "
+                  f"{cfg.param_dtype}; moments {cfg.moment_dtype}) per "
+                  f"device: " + "; ".join(cols))
+
+
+def run_dense_large(dev, by_path: dict) -> None:
+    """Phase 14 (a)-(c): each part runs, and the phase fails after the
+    last if any part failed its checks."""
+    print(f"dense_large: {card_line()}")
+    parts = [(dense_large_card_vs_cpu, ())] + \
+        [(dense_large_full, cut) for cut in DENSE_LARGE] + \
+        [(dense_large_placements, ())]
+    failed = []
+    for fn, args in parts:
+        t = time.perf_counter()
+        try:
+            fn(dev, by_path, *args)
+        except AssertionError as e:
+            print(f"FAILED {fn.__name__}{args}: {e}")
+            failed.append(f"{fn.__name__}{args}")
+        torch.cuda.empty_cache()
+        print(f"dense_large part {fn.__name__}{args}: wall_s="
+              f"{time.perf_counter() - t:.1f}")
+    if failed:
+        raise AssertionError(f"phase 14 parts failed: {failed}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4794,6 +5317,7 @@ def main() -> int:
     phase("11_examples", run_examples, dev, by_path)
     phase("12_families", run_families, dev, by_path)
     phase("13_frontends", run_frontends, dev, by_path)
+    phase("14_dense_large", run_dense_large, dev, by_path)
     print(f"phase_s={json.dumps(phase_s)}")
     print(f"peak_memory_bytes_run={torch.cuda.max_memory_allocated()}")
     print(f"wall_s={time.perf_counter() - t0:.1f}")

@@ -1,18 +1,20 @@
 """Configuration of the port: copies of ``repro.configs.base``'s
 ``MoEConfig``, ``SSMConfig``, ``XLSTMConfig``, ``ModelConfig``,
-``ShapeSpec`` and ``TrainConfig``.
+``ShapeSpec``, ``TrainConfig`` and ``MeshConfig`` with its ``SINGLE_POD``
+and ``MULTI_POD`` meshes.
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 The sub-configurations of the MoE, hybrid (Mamba2) and xLSTM families and
-the frontend fields are the reference's, defaults included; the
-reference's sharding knobs (``MoEConfig.dispatch``'s ``"a2a"``,
-``shard_hints``) are carried but not run (ROADMAP.md, queue 1, item 12c).
+the frontend fields are the reference's, defaults included.
+``shard_hints`` selects the MoE's per-group dispatch under an ambient mesh
+(``models/mlp.py``); ``MoEConfig.dispatch`` is carried and, as in the
+reference, read by nothing.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -117,8 +119,8 @@ class ShapeSpec:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training-step hyperparameters (shape-independent). The reference's
-    sharding knobs (``zero_moments``, ``scan_layers`` and its
-    ``MeshConfig``) mean nothing on one device and are left out."""
+    sharding-only fields (``zero_moments``, ``scan_layers``) are read by
+    nothing in one process and are left out."""
 
     lr: float = 3e-4
     weight_decay: float = 0.1
@@ -129,4 +131,23 @@ class TrainConfig:
     microbatches: int = 1        # gradient accumulation
     remat: str = "full"          # none | full | dots (activation checkpoints)
     grad_compress: bool = False  # int8 gradients with error feedback
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's axis sizes and names (``launch.mesh.make_mesh``)."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
 

@@ -52,6 +52,15 @@ def map_leaves(fn, tree):
     return fn(tree)
 
 
+def map_with_path(fn, tree, path: Path = ()):
+    """``tree`` with ``fn(key_path, leaf)`` applied to every leaf, as
+    ``jax.tree_util.tree_map_with_path`` does; dicts keep their key
+    order."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
 def _build(td: Treedef, it):
     if td is None:
         return next(it)

@@ -122,11 +122,20 @@ class Stream:
         self.counter += n
         return out
 
+    def _shape_only(self, shape, n: int, dtype: torch.dtype
+                    ) -> torch.Tensor:
+        """A draw on the ``meta`` device: its counters are used up and its
+        shape and dtype made, with no values to compute."""
+        self.counter += n
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
     def truncated_normal(self, shape, scale: float,
                          dtype: torch.dtype) -> torch.Tensor:
         """Truncated normal on [-2, 2] times ``scale``, computed in float32
         and cast to ``dtype``."""
         n = math.prod(shape)
+        if self.device.type == "meta":
+            return self._shape_only(shape, n, dtype)
         values, steps = (t.to(self.device) for t in _inverse_cdf())
         out = torch.empty(n, dtype=dtype, device=self.device)
         for a in range(0, n, _CHUNK):
@@ -145,6 +154,8 @@ class Stream:
         ``jax.random.normal`` initialisations), computed in float32 and
         cast to ``dtype``."""
         n = math.prod(shape)
+        if self.device.type == "meta":
+            return self._shape_only(shape, n, dtype)
         values, steps, tail = (t.to(self.device) for t in _normal_tables())
         n_tail = tail.numel()
         top = (1 << 24) - 1

@@ -1,2 +1,2 @@
 """Entry points of the port (``explore``, ``serve``, ``serve_online``,
-``train``) and the device grid of sharded domains (``mesh``)."""
+``train``) and the device meshes (``mesh``)."""

@@ -1,18 +1,19 @@
-"""Device grids for sharded memory domains.
+"""Device meshes: the sharding rules' meshes and sharded memory domains'
+grids.
 
-Counterpart of ``make_domain_mesh`` in ``repro.launch.mesh`` and of
-``_mesh_devices`` in ``repro.core.sharded``. A ``DomainMesh`` is a grid of
-``torch.device``s with named axes: ``data`` carries the data-parallel
-replicas (the ``PEER_COPY`` donors) and ``model`` the leaf shards.
-``core.sharded.ShardedMemoryDomain.protect(mesh=...)`` places each
-(replica, shard) cell's leaves on its grid device.
+Counterpart of ``repro.launch.mesh`` and of ``_mesh_devices`` in
+``repro.core.sharded``. A ``DomainMesh`` is a grid of ``torch.device``s
+with named axes: for a sharded memory domain, ``data`` carries the
+data-parallel replicas (the ``PEER_COPY`` donors) and ``model`` the leaf
+shards; ``core.sharded.ShardedMemoryDomain.protect(mesh=...)`` places each
+(replica, shard) cell's leaves on its grid device. ``make_mesh`` and
+``make_production_mesh`` build one over CUDA devices in a ``MeshConfig``'s
+layout. ``with mesh:`` makes a ``DomainMesh`` the thread's ambient mesh
+(``sharding.mesh``).
 
 A hand-built mesh may name one device more than once: torch has a single
 ``cpu`` device, so the CPU tests build their grids that way, where the
 reference forces several host devices.
-
-``make_production_mesh``, ``make_mesh`` and ``mesh_config`` need
-``MeshConfig``, which is not ported (ROADMAP.md, queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -22,9 +23,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import MULTI_POD, SINGLE_POD, MeshConfig
+from repro_torch.sharding.mesh import _Ambient
 
 @dataclass(frozen=True, eq=False)
-class DomainMesh:
+class DomainMesh(_Ambient):
     """``devices``: an object array of ``torch.device`` with one axis per
     name of ``axis_names``."""
     devices: np.ndarray
@@ -49,18 +52,46 @@ class DomainMesh:
     def shape(self) -> Tuple[int, ...]:
         return tuple(self.devices.shape)
 
+    @property
+    def axis_sizes(self) -> Tuple[int, ...]:
+        return self.shape
+
+
+def _cuda_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+               what: str) -> DomainMesh:
+    """A mesh of ``shape`` over the first CUDA devices in row-major order.
+    Like ``jax.make_mesh``, it raises when fewer are visible."""
+    need = int(np.prod(shape))
+    have = torch.cuda.device_count()
+    if have < need:
+        raise ValueError(f"a {what} needs {need} CUDA devices; {have} "
+                         "visible")
+    names = np.array([f"cuda:{i}" for i in range(need)],
+                     dtype=object).reshape(shape)
+    return DomainMesh.of(names.tolist(), axes)
+
 
 def make_domain_mesh(n_replicas: int = 2, n_shards: int = 2) -> DomainMesh:
     """A ``(data, model)`` mesh over the first ``n_replicas * n_shards``
-    CUDA devices. Like ``jax.make_mesh``, it raises when fewer are
-    visible."""
-    need = n_replicas * n_shards
-    have = torch.cuda.device_count()
-    if have < need:
-        raise ValueError(f"a {n_replicas}x{n_shards} domain mesh needs {need} "
-                         f"CUDA devices; {have} visible")
-    return DomainMesh.of([[f"cuda:{r * n_shards + s}" for s in range(n_shards)]
-                          for r in range(n_replicas)])
+    CUDA devices, for sharded memory domains."""
+    return _cuda_mesh((n_replicas, n_shards), ("data", "model"),
+                      f"{n_replicas}x{n_shards} domain mesh")
+
+
+def make_mesh(mesh_cfg: MeshConfig) -> DomainMesh:
+    """A mesh of ``mesh_cfg``'s shape and axes over CUDA devices."""
+    return _cuda_mesh(tuple(mesh_cfg.shape), tuple(mesh_cfg.axes),
+                      "x".join(map(str, mesh_cfg.shape)) + " mesh")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DomainMesh:
+    """SINGLE_POD's 16x16 ``(data, model)`` mesh, or MULTI_POD's 2x16x16
+    ``(pod, data, model)``: 256 or 512 CUDA devices."""
+    return make_mesh(mesh_config(multi_pod))
+
+
+def mesh_config(multi_pod: bool) -> MeshConfig:
+    return MULTI_POD if multi_pod else SINGLE_POD
 
 
 def mesh_grid(mesh, replica_axis: str = "data",

@@ -6,10 +6,15 @@ compute dtype and rotated by RoPE; the scores are the compute-dtype product
 cast to float32 afterwards (the reference's rounding), scaled by
 ``1/sqrt(dh)``, causally masked with ``-inf`` and softmaxed in float32,
 then cast to V's dtype for the weighted sum and the output projection.
-``cfg.shard_hints`` is a GSPMD layout hint in the reference and is ignored
-here: the reference's one-hot cache write under it equals the direct
-write, which ``attn_decode`` always does (sharding is ROADMAP.md, queue 1,
-item 12).
+Under ``cfg.shard_hints`` the reference pins the layouts of Q, K, V, the
+scores and the output (``sharding.rules.hint``) and writes the decode
+cache by a one-hot select. A layout constraint changes no value, and one
+PyTorch process has no layout to pin, so the port makes no such calls
+(nor in the MLP, the head or the train step's gradients); the one-hot
+write equals the direct write, which ``attn_decode`` always does.
+``tests/test_torch_rules.py::test_train_step_under_shard_hints_equals_reference``
+holds the loss, the gradients and the train step under ``shard_hints``
+with an ambient mesh equal to the reference's.
 """
 from __future__ import annotations
 

@@ -17,10 +17,13 @@ token. The kept ``(row, col)`` slots are unique, so the port writes them
 it inverts the sort and sums each token's ``K`` copies by one reduction
 over ``K``, whose order is fixed.
 
-The reference's expert-parallel path (``_moe_apply_local``, taken under
-``shard_hints`` with a mesh) has no reader on one device and waits with
-the sharding rules (ROADMAP.md, queue 1, item 12); ``moe_apply`` runs the
-global dispatch whatever ``shard_hints`` says.
+Under ``shard_hints`` with an ambient mesh whose data axes divide the
+batch, ``moe_apply`` dispatches per data group, as the reference's
+expert-parallel path does (``_moe_apply_local``): each group of
+``(B // g) * S`` tokens has its own capacity, so where a capacity drops
+tokens the result differs from the global dispatch's. Otherwise it runs
+the global dispatch. The reference's layout hints around the dispatch
+change no value and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.draws import Stream
 from repro_torch.models.common import act_fn, dense_init, dtype_of
+from repro_torch.sharding.mesh import ambient_mesh
+from repro_torch.sharding.rules import _axis_size, data_axes
 
 
 # ---------------------------------------------------------------- dense MLP
@@ -107,9 +112,29 @@ def _route(p, xt: torch.Tensor, cfg: ModelConfig):
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,D) -> (y (B,S,D), aux_loss scalar float32)."""
+    if cfg.shard_hints:
+        m = ambient_mesh()
+        if m is not None:
+            dp = data_axes(m)
+            if x.shape[0] % _axis_size(m, dp) == 0:
+                return _moe_apply_local(p, x, cfg, m, dp)
     B, S, D = x.shape
     y, aux = _moe_dispatch_tokens(p, x.reshape(B * S, D), cfg)
     return y.reshape(B, S, D), aux
+
+
+def _moe_apply_local(p, x: torch.Tensor, cfg: ModelConfig, mesh, dp
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-group dispatch: the tokens reshape to ``(g, (B // g) * S, D)``
+    with ``g`` the size of the mesh's data axes ``dp``; each group is
+    dispatched on its own, with the capacity of its tokens; the aux loss
+    is the mean over the groups."""
+    B, S, D = x.shape
+    g = _axis_size(mesh, dp)
+    outs = [_moe_dispatch_tokens(p, xt, cfg)
+            for xt in x.reshape(g, (B // g) * S, D)]
+    y = torch.stack([y for y, _ in outs]).reshape(B, S, D)
+    return y, torch.stack([aux for _, aux in outs]).mean()
 
 
 def _moe_dispatch_tokens(p, xt: torch.Tensor, cfg: ModelConfig

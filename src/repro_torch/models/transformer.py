@@ -37,8 +37,9 @@ as the reference's ``jax.checkpoint`` does: ``"full"`` saves nothing of a
 layer, ``"dots"`` saves its matrix products. ``decode_step`` writes the
 caches and recurrent states it is given in place and returns them.
 
-The reference's sharding hints are not ported (ROADMAP.md, queue 1, item
-12c).
+The reference's layout hints under ``shard_hints`` change no value and
+have no counterpart here (``models/attention.py`` says why); its sharded
+cross-entropy under ``shard_hints`` is ``cross_entropy_sharded``.
 """
 from __future__ import annotations
 
