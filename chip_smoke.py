@@ -256,6 +256,32 @@ Needs one CUDA card (an H100: the kernels build for ``sm_90a``) and
    MULTI_POD, with FSDP and ``tp_only``: one device's share of the
    parameters and of the parameters plus moments, beside the card's
    memory.
+15. the last slice, after phase 14 (``legacy_*`` and ``elastic_store``
+   launch paths): three dry-run cells start first, each in a host process
+   of its own with the card hidden, and run beside (a) and (b). (a) The
+   legacy per-leaf API (``build_sidecar``, ``scrub``, ``Injector``,
+   ``Scrubber``, ``RecoveryManager``) at llama3-8b's full width with 2 of
+   its 32 layers under typical_server, detect_recover_l and a DEC-TED /
+   BURST policy: a single-bit hard strike from the Injector's seed into
+   every leaf, the scrub, a Scrubber at stride 1 and 4, and the
+   RecoveryManager's reloads; held against the same shims run with the
+   kernels' plain versions on the card (sidecars, reports, passes and
+   events equal, leaves bit-equal, no launch), against ``MemoryDomain``'s
+   verbs on the same strikes (the same corrections), and restored bit
+   for bit; then the per-leaf scrub's wall ms beside the domain's
+   tier-batched scrub. (b) lm-100m's train state through the hardened
+   store (its staging scrub on the parity kernels) onto a ``(1, 1)`` CUDA
+   ``DeviceMesh`` over a world-size-1 NCCL group: the newest snapshot
+   struck on disk, ``load(shardings=state_shardings(...))`` falling back
+   to the older one and placing it as DTensors, and one
+   ``relower_train_step`` step bit-equal to the unsharded step under
+   deterministic algorithms; with two or more cards, the reshard drill of
+   ``repro_torch.examples.elastic_reshard`` across them. (c) The dry-run
+   cells ``llama3-8b`` ``train_4k`` and ``decode_32k`` and
+   ``deepseek-moe-16b`` ``train_4k`` at SINGLE_POD on a fake 256-rank
+   mesh: per-device FLOPs beside the model FLOPs, collective link bytes
+   by kind, the roofline terms on the H100's published rates beside the
+   card's name and power limit, and each cell's wall seconds.
 
 Phase 3c holds the port's random draws (tiny llama3-8b and kvstore-demo
 parameters, the kv-store's query keys, the four tiny MoE, hybrid and
@@ -437,6 +463,13 @@ DENSE_LARGE_BATCH, DENSE_LARGE_PROMPT = 4, 128
 DENSE_LARGE_NEW, DENSE_LARGE_SCRUB = 32, 8
 DENSE_LARGE_TINY_REL = 1e-5            # (a) card vs CPU, float32 compute
 DENSE_LARGE_MOE_GROUPS = (1, 2, 4)
+# phase 15: the legacy per-leaf shims at llama3-8b's full width with 2 of
+# its 32 layers, elastic on one card, and dry-run cells on the host
+LEGACY_LAYERS = 2
+LEGACY_STRIDES = (1, 4)                # Scrubber round robin
+DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("llama3-8b", "decode_32k"),
+                ("deepseek-moe-16b", "train_4k"))
+DRYRUN_TIMEOUT = 900                   # a cell's host process, seconds
 # decode vs forward, in bf16 ulps: above the sound decodes' readings and
 # below a planted fault's (every step one position early), which each run
 # reads too (PERF.md, PR 22)
@@ -5259,6 +5292,352 @@ def run_dense_large(dev, by_path: dict) -> None:
         raise AssertionError(f"phase 14 parts failed: {failed}")
 
 
+# ------------------------------------------------ 15. the last slice
+_DRYRUN_CELL = """
+import json, sys, time
+t = time.perf_counter()
+from repro_torch.launch import dryrun
+rec = dryrun.lower_cell(sys.argv[1], sys.argv[2], multi_pod=False)
+rec["wall_s"] = round(time.perf_counter() - t, 1)
+rec.pop("trace", None)
+print(json.dumps(rec))
+"""
+
+
+def _start_dryruns() -> list:
+    """(c) starts each DRYRUN_CELLS cell in a host process of its own, the
+    card hidden from it: the cells take a minute of host CPU each and run
+    beside (a) and (b)."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"), CUDA_VISIBLE_DEVICES="")
+    return [(arch, shape, subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_CELL, arch, shape], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for arch, shape in DRYRUN_CELLS]
+
+
+def _legacy_policies() -> dict:
+    from repro_torch.core import DESIGN_POINTS, HRMPolicy, Tier
+    return {"typical_server": DESIGN_POINTS["typical_server"](),
+            "detect_recover_l": DESIGN_POINTS["detect_recover_l"](),
+            "dected_burst": HRMPolicy("dected_burst", {
+                "params/embed": Tier.BURST, "params/attn": Tier.DECTED,
+                "params/mlp": Tier.DECTED, "params/norm": Tier.SECDED})}
+
+
+class _PlainOps:
+    """``kernels.ops``' word functions swapped for their plain versions for
+    the length of a ``with``: the legacy shims run through them on the
+    card's tensors and launch no kernel."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+        from repro_torch.kernels.bch import bch_scrub_plain
+        from repro_torch.kernels.burst import (burst_encode_plain,
+                                               burst_scrub_plain)
+        from repro_torch.kernels.dected import DECTED_CODE
+        from repro_torch.kernels.parity import parity_check_plain
+        from repro_torch.kernels.secded import secded_scrub_plain
+        plain = {
+            "secded_encode_words": ref.secded_encode_ref,
+            "secded_scrub_words": secded_scrub_plain,
+            "dected_encode_words": lambda w: ref.bch_encode_ref(
+                w, DECTED_CODE),
+            "dected_scrub_words": lambda w, e: bch_scrub_plain(
+                w, e, DECTED_CODE),
+            "burst_encode_words": burst_encode_plain,
+            "burst_scrub_words": burst_scrub_plain,
+            "parity_encode_words": ref.parity_encode_ref,
+            "parity_check_words": parity_check_plain,
+            "bitflip_words_": _plain_bitflip}
+        self.saved = {k: getattr(ops, k) for k in plain}
+        for k, fn in plain.items():
+            setattr(ops, k, fn)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.kernels import ops
+        for k, fn in self.saved.items():
+            setattr(ops, k, fn)
+
+
+def _legacy_need(sidecar) -> set:
+    need = {"bitflip"}
+    for entry in sidecar.values():
+        need |= {"secded": {"secded_encode", "secded_scrub"},
+                 "dected": {"bch_encode", "bch_scrub"},
+                 "burst": {"burst_encode", "burst_scrub"},
+                 "parity_r": {"parity_encode", "parity_check"},
+                 "mirror": {"parity_encode", "parity_check"}}[entry["tier"]]
+    return need
+
+
+def _legacy_run(params, policy, stride: int) -> dict:
+    """One pass of the legacy per-leaf API over ``params``: the sidecar, a
+    single-bit hard strike into every leaf from the Injector's seed, the
+    scrub, a Scrubber over ``stride`` passes of the struck state, and the
+    RecoveryManager's reloads from the clean parameters."""
+    import warnings
+    from repro_torch.core import (Injector, RecoveryManager, Scrubber,
+                                  build_sidecar, scrub)
+    from repro_torch.core.sidecar import leaf_index
+    clean = {p: e["leaf"] for p, e in leaf_index(params).items()}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        sc = build_sidecar(params, policy)
+        inj = Injector.seeded(SEED)
+        bad = params
+        for path in clean:
+            bad = inj.sample_into(bad, path, hard=True,
+                                  multi_bit_fraction=0.0)
+        fixed, sc2, rep = scrub(bad, sc, policy)
+        scr = Scrubber(policy, dict(sc), stride=stride)
+        state = bad
+        for _ in range(stride):
+            state, _ = scr.scrub_now(state)
+        rm = RecoveryManager(clean.__getitem__)
+        healed = rm.respond(fixed, rep, Scrubber(policy, dict(sc2)))
+    _sync()
+    return {"sidecar": sc, "report": rep, "fixed": fixed,
+            "healed": healed, "passes": scr.history, "events": rm.events,
+            "plans": [(e.path, e.plan) for e in inj.live],
+            "stride_state": state}
+
+
+def _same_sidecars(a, b) -> bool:
+    return list(a) == list(b) and all(
+        a[p]["tier"] == b[p]["tier"] and all(
+            torch.equal(_bytes(a[p][k]), _bytes(b[p][k]))
+            for k in a[p] if k != "tier") for p in a)
+
+
+def legacy_shims(dev, by_path: dict) -> None:
+    """(a) the legacy per-leaf API at llama3-8b's full width with
+    LEGACY_LAYERS of its layers, under each of _legacy_policies: the
+    kernels' run held against the same shims on the plain versions (the
+    card's tensors, no launch) and against ``MemoryDomain``'s verbs on the
+    same strikes; then the per-leaf scrub's wall time beside the domain's
+    tier-batched scrub."""
+    import warnings
+    from repro_torch.configs import get_config
+    from repro_torch.core import MemoryDomain, scrub
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_params
+    cfg = get_config("llama3-8b").replace(n_layers=LEGACY_LAYERS)
+    params = init_params(cfg, seed=SEED, device=dev)
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"legacy model: llama3-8b width, {LEGACY_LAYERS} of 32 layers, "
+          f"params={n} ({cfg.param_dtype}) bytes={_leaf_bytes(params)}")
+    for name, policy in _legacy_policies().items():
+        for stride in LEGACY_STRIDES:
+            _build.reset_launches()
+            got = _legacy_run(params, policy, stride)
+            if stride == LEGACY_STRIDES[0]:
+                _path_launches(f"legacy_{name}", _legacy_need(
+                    got["sidecar"]), by_path)
+            else:
+                by_path[f"legacy_{name}"] = {
+                    k: v + by_path[f"legacy_{name}"][k]
+                    for k, v in _build.LAUNCHES.items()}
+            launched = dict(_build.LAUNCHES)
+            with _PlainOps():
+                plain = _legacy_run(params, policy, stride)
+            if dict(_build.LAUNCHES) != launched:
+                raise AssertionError("the plain run launched a kernel")
+            same = (_same_sidecars(got["sidecar"], plain["sidecar"])
+                    and _counts(got["report"]) == _counts(plain["report"])
+                    and _same_bytes(got["fixed"], plain["fixed"])
+                    and _same_bytes(got["healed"], plain["healed"])
+                    and _same_bytes(got["stride_state"],
+                                    plain["stride_state"])
+                    and got["passes"] == plain["passes"]
+                    and got["events"] == plain["events"])
+            dom = MemoryDomain.protect(params, policy)
+            for path, plan in got["plans"]:
+                dom = dom.apply_plan(path, plan)
+            dom, drep = dom.scrub()
+            as_domain = _counts(drep) == _counts(got["report"]) and all(
+                torch.equal(_bytes(dom.leaf(p)), _bytes(leaf))
+                for p, leaf in _flat_paths(got["fixed"]).items())
+            healed = _same_bytes(got["healed"], params)
+            corr, unc = got["report"].totals()
+            print(f"legacy {name} stride={stride}: strikes="
+                  f"{len(got['plans'])} corrected={corr} detected={unc} "
+                  f"reloaded={len(got['events'])} passes={got['passes']} "
+                  f"card==plain: {same} same corrections as MemoryDomain: "
+                  f"{as_domain} restored bit-exact: {healed}")
+            if not (same and as_domain and healed):
+                raise AssertionError(f"legacy {name} stride={stride} failed")
+            del got, plain, dom
+        sc = _legacy_run(params, policy, 1)["sidecar"]
+        dom = MemoryDomain.protect(params, policy)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            leaf_ms = _median_ms(lambda: scrub(params, sc, policy))
+        dom_ms = _median_ms(dom.scrub)
+        print(f"legacy {name} scrub wall ms: per-leaf={leaf_ms:.2f} "
+              f"({len(sc)} leaves, a launch per leaf) tier-batched "
+              f"MemoryDomain={dom_ms:.2f} ({len(dom.spec.groups)} tiers, a "
+              f"launch per tier) ratio={leaf_ms / dom_ms:.2f} "
+              f"({card_line()})")
+        del sc, dom
+        torch.cuda.empty_cache()
+
+
+def _leaves(t) -> list:
+    from repro_torch.core import tree
+    return tree.leaves(t)
+
+
+def _flat_paths(t) -> dict:
+    from repro_torch.core import tree
+    return {"/".join(p): x for p, x in tree.flatten_with_path(t)[0]}
+
+
+def elastic_one_card(dev, by_path: dict) -> None:
+    """(b) lm-100m's train state through the hardened store onto a (1, 1)
+    CUDA mesh: two snapshots (the staging scrub on the parity kernels),
+    the newest struck on disk, ``load(shardings=state_shardings(...))``
+    falling back to the older one and placing it as DTensors, and one
+    ``relower_train_step`` step bit-equal to the unsharded step from the
+    same snapshot, under deterministic algorithms."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.elastic import (relower_train_step,
+                                             state_shardings)
+    from repro_torch.runtime.steps import make_train_step
+    cfg, tcfg, state = _lm100m(dev)
+    step = make_train_step(cfg, tcfg)
+    batch = lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, SEED, device=dev)
+    newer, _ = step(state, batch)
+    with tempfile.TemporaryDirectory() as d:
+        _build.reset_launches()
+        store = CheckpointStore(Path(d) / "ck", device=dev)
+        store.save(1, state)
+        store.save(2, newer)
+        _path_launches("elastic_store", STAGING_KERNELS, by_path)
+        _flip_byte(Path(d) / "ck" / "step_00000002" / "data.npz")
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{d}/pg", rank=0, world_size=1)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            mesh = init_device_mesh(dev.type, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            placed, load_ms = _timed(lambda: store.load(
+                2, state, shardings=state_shardings(state, mesh, cfg)))
+            fell_back = store.last_loaded_step
+            on_mesh = all(isinstance(t, DTensor) and t.device_mesh == mesh
+                          for t in _leaves(placed))
+            local = _flat_paths(placed)
+            exact = all(torch.equal(_bytes(local[p].to_local()), _bytes(t))
+                        for p, t in _flat_paths(state).items())
+            run = relower_train_step(step, placed, batch, mesh, cfg)
+            (got, m), sharded_ms = _timed(lambda: run(placed, batch))
+            (want, wm), plain_ms = _timed(lambda: step(state, batch))
+            got_local = {p: t.to_local() for p, t in
+                         _flat_paths(got).items()}
+            same = all(torch.equal(_bytes(got_local[p]), _bytes(t))
+                       for p, t in _flat_paths(want).items()) \
+                and float(m["loss"]) == float(wm["loss"])
+        finally:
+            torch.use_deterministic_algorithms(False)
+            dist.destroy_process_group()
+    print(f"elastic (1, 1) mesh on one card: load(shardings=) fell back to "
+          f"step {fell_back}, placed as DTensors: {on_mesh}, bytes equal: "
+          f"{exact}, load_ms={load_ms:.1f}; relowered step loss="
+          f"{float(m['loss']):.6f} bit-equal to the unsharded step: {same} "
+          f"(step_ms sharded={sharded_ms:.1f} unsharded={plain_ms:.1f})")
+    if fell_back != 1 or not (on_mesh and exact and same):
+        raise AssertionError("elastic on one card failed")
+    n = torch.cuda.device_count()
+    if n >= 2:
+        from repro_torch.examples import elastic_reshard
+        ranks = n - n % 2
+        with tempfile.TemporaryDirectory() as d:
+            res = elastic_reshard.run(ranks, "cuda", str(Path(d) / "e.npz"))
+        print(f"elastic reshard between meshes on {ranks} cards: losses "
+              f"{res['losses'].tolist()} unsharded "
+              f"{res['plain_losses'].tolist()} misplaced blocks "
+              f"{int(res['mismatches'])}")
+        if int(res["mismatches"]) or not np.allclose(
+                res["losses"], res["plain_losses"],
+                rtol=elastic_reshard.LOSS_RTOL, atol=0):
+            raise AssertionError("the reshard drill failed on the cards")
+    else:
+        print("elastic reshard between meshes: held on 8 CPU gloo ranks by "
+              "tests/test_torch_elastic.py; one card visible")
+
+
+def dryrun_cells(procs: list) -> None:
+    """(c) the DRYRUN_CELLS records from their host processes: per-device
+    FLOPs beside the model FLOPs, the collective link bytes by kind, and
+    the roofline terms on this card's published rates."""
+    from repro_torch.launch import step_cost
+    card = card_line()
+    bad = []
+    for arch, shape, proc in procs:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        if proc.returncode:
+            print(err[-2000:], file=sys.stderr)
+            bad.append(f"{arch}|{shape}")
+            continue
+        rec = json.loads(out.strip().splitlines()[-1])
+        hlo, roof = rec["hlo"], rec["roofline"]
+        n = rec["n_devices"]
+        print(f"dryrun {arch} {shape} {rec['mesh']}: status={rec['status']} "
+              f"flops/dev={hlo['flops']:.6e} model_flops/dev="
+              f"{rec['model_flops_global'] / n:.6e} (global "
+              f"{rec['model_flops_global']:.6e}) hbm_bytes/dev="
+              f"{hlo['hbm_bytes']:.6e} (analytic floor "
+              f"{rec['analytic_bytes_per_device']:.6e}) coll_link_bytes="
+              f"{json.dumps(hlo['coll_link_bytes'])} wall_s={rec['wall_s']}")
+        print(f"dryrun {arch} {shape} roofline on {card} (H100 SXM data "
+              f"sheet: {step_cost.PEAK_FLOPS:.3e} FLOP/s bf16, "
+              f"{step_cost.HBM_BW:.3e} B/s HBM, {step_cost.LINK_BW:.3e} B/s "
+              f"NVLink a direction): compute_s={roof['compute_s']:.6f} "
+              f"memory_s={roof['memory_s']:.6f} collective_s="
+              f"{roof['collective_s']:.6f} dominant={roof['dominant']}")
+        if rec["status"] != "ok" or not hlo["flops"] > 0:
+            bad.append(f"{arch}|{shape}")
+    if bad:
+        raise AssertionError(f"dry-run cells failed: {bad}")
+
+
+def run_last_slice(dev, by_path: dict) -> None:
+    """Phase 15 (a)-(c): the dry-run processes start first and run on the
+    host beside (a) and (b); every process is stopped before the phase
+    ends, and the phase fails after the last part if any part failed."""
+    print(f"last slice: {card_line()}")
+    procs = _start_dryruns()
+    failed = []
+    try:
+        for fn, args in ((legacy_shims, (dev, by_path)),
+                         (elastic_one_card, (dev, by_path)),
+                         (dryrun_cells, (procs,))):
+            t = time.perf_counter()
+            try:
+                fn(*args)
+            except AssertionError as e:
+                print(f"FAILED {fn.__name__}: {e}")
+                failed.append(fn.__name__)
+            torch.cuda.empty_cache()
+            print(f"last slice part {fn.__name__}: wall_s="
+                  f"{time.perf_counter() - t:.1f}")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise AssertionError(f"phase 15 parts failed: {failed}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5318,6 +5697,7 @@ def main() -> int:
     phase("12_families", run_families, dev, by_path)
     phase("13_frontends", run_frontends, dev, by_path)
     phase("14_dense_large", run_dense_large, dev, by_path)
+    phase("15_last_slice", run_last_slice, dev, by_path)
     print(f"phase_s={json.dumps(phase_s)}")
     print(f"peak_memory_bytes_run={torch.cuda.max_memory_allocated()}")
     print(f"wall_s={time.perf_counter() - t0:.1f}")

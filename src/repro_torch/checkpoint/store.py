@@ -250,11 +250,14 @@ class CheckpointStore:
             out[k] = raw.view(dt).reshape(m["shape"])
         return out
 
-    def load(self, step: int, like_state, *, verify: bool = True,
-             fallback: bool = True):
+    def load(self, step: int, like_state, shardings=None, *,
+             verify: bool = True, fallback: bool = True):
         """Restore into the structure of ``like_state``, each leaf on the
         device of the leaf it replaces (the store's device where that is
-        not a tensor).
+        not a tensor). With ``shardings`` (``runtime.elastic.
+        state_shardings`` over a ``DeviceMesh``: the elastic-rescale
+        path), each restored leaf is then placed on that mesh as a DTensor
+        (``runtime.elastic.place_tree``); the bytes on disk do not change.
 
         With ``verify``, a snapshot failing CRC/manifest checks is
         refused; ``fallback`` then retries the newest older verifying
@@ -274,7 +277,11 @@ class CheckpointStore:
             dev = like.device if isinstance(like, torch.Tensor) \
                 else self.device
             ordered.append(flat["/".join(str(k) for k in path)].to(dev))
-        return tree.unflatten(treedef, ordered)
+        state = tree.unflatten(treedef, ordered)
+        if shardings is not None:
+            from repro_torch.runtime.elastic import place_tree
+            state = place_tree(state, shardings)
+        return state
 
     def latest_step(self) -> Optional[int]:
         s = self.steps()

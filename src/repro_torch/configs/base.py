@@ -1,7 +1,9 @@
 """Configuration of the port: copies of ``repro.configs.base``'s
 ``MoEConfig``, ``SSMConfig``, ``XLSTMConfig``, ``ModelConfig``,
-``ShapeSpec``, ``TrainConfig`` and ``MeshConfig`` with its ``SINGLE_POD``
-and ``MULTI_POD`` meshes.
+``ShapeSpec`` with the shape table (``TRAIN_4K``, ``PREFILL_32K``,
+``DECODE_32K``, ``LONG_500K``, ``SHAPES``, ``SHAPE_BY_NAME``,
+``shape_applicability``), ``TrainConfig`` and ``MeshConfig`` with its
+``SINGLE_POD`` and ``MULTI_POD`` meshes.
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 The sub-configurations of the MoE, hybrid (Mamba2) and xLSTM families and
@@ -114,6 +116,24 @@ class ShapeSpec:
     seq_len: int
     global_batch: int
     kind: str                    # train | prefill | decode
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
+
+SHAPES: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPE_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def shape_applicability(cfg: ModelConfig, shape: ShapeSpec) -> Optional[str]:
+    """Return None if the (arch, shape) cell runs, else a skip reason."""
+    if shape.kind == "decode" and not cfg.is_decoder:
+        return "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return "long_500k requires sub-quadratic attention (full-attention arch)"
+    return None
 
 
 @dataclass(frozen=True)

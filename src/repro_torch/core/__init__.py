@@ -1,5 +1,7 @@
 """Core of the port: tiers, error model, policies, recovery, scrub reports,
-the ``MemoryDomain`` verbs, sharded domains with peer-copy recovery
+the ``MemoryDomain`` verbs, the deprecated per-leaf path (``build_sidecar``
+/ ``scrub`` / ``Scrubber`` / ``Injector`` / ``RecoveryManager``, each
+warning as the reference's does), sharded domains with peer-copy recovery
 (``sharded``), measured per-tier ECC outcome rates
 (``eccmeasure``), the Fig. 5 cost and availability models
 (``costmodel``/``availability``), the Fig. 2 campaign (``taxonomy``,
@@ -28,19 +30,27 @@ from repro_torch.core.eccmeasure import (  # noqa: F401
     TierOutcomeRates, measure_class_rates, measured_outcome_rates,
     measured_tier_rates,
 )
-from repro_torch.core.errormodel import ErrorModel, InjectionPlan  # noqa: F401
+from repro_torch.core.errormodel import (  # noqa: F401
+    DEFAULT_ADJACENT_FRACTION, DEFAULT_MULTI_BIT_FRACTION, ErrorModel,
+    InjectionPlan,
+)
+from repro_torch.core.injection import Injector  # noqa: F401
 from repro_torch.core.policy import (  # noqa: F401
     DESIGN_POINTS, REGIONS, HRMPolicy, burst_dr_l, classify_path,
     dected_server, detect_recover, detect_recover_l, mirror_dr_l,
     peer_dr_l, typical_server,
 )
 from repro_torch.core.recovery import (  # noqa: F401
-    BLOCK_BYTES, Response, RestartRequired, RetirementMap, flagged_blocks,
+    BLOCK_BYTES, RecoveryManager, Response, RestartRequired, RetirementMap,
+    flagged_blocks,
 )
 from repro_torch.core.sharded import (  # noqa: F401
     ShardedMemoryDomain, ShardedScrubReport,
 )
-from repro_torch.core.sidecar import ScrubReport  # noqa: F401
+from repro_torch.core.scrubber import Scrubber  # noqa: F401
+from repro_torch.core.sidecar import (  # noqa: F401
+    ScrubReport, build_sidecar, scrub, sidecar_bytes, state_bytes,
+)
 from repro_torch.core.tiers import Tier  # noqa: F401
 from repro_torch.core.taxonomy import Outcome, OutcomeStats  # noqa: F401
 from repro_torch.core.trace import (  # noqa: F401

@@ -46,3 +46,11 @@ class AbstractMesh(_Ambient):
         if len(self.axis_sizes) != len(self.axis_names):
             raise ValueError(f"axis sizes {self.axis_sizes} for axes "
                              f"{self.axis_names}")
+
+    @classmethod
+    def of(cls, mesh) -> "AbstractMesh":
+        """The axis names and sizes of ``mesh``: a port mesh, or a
+        ``torch.distributed`` ``DeviceMesh`` (its ``mesh_dim_names``)."""
+        if hasattr(mesh, "mesh_dim_names"):
+            return cls(tuple(mesh.shape), tuple(mesh.mesh_dim_names))
+        return cls(tuple(mesh.axis_sizes), tuple(mesh.axis_names))

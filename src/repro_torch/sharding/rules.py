@@ -19,6 +19,11 @@ devices), a ``DomainMesh`` and the meshes of ``make_mesh`` alike. A path
 is the port's key tuple (``core.tree``), e.g. ``("blocks", "attn",
 "wq")``: the key tuple the reference builds from ``jax.tree_util`` paths.
 
+``placements`` turns a spec into the ``Placement``s of a
+``torch.distributed`` ``DeviceMesh`` with the same axis names, for the
+DTensors of ``launch.dryrun``, ``runtime.elastic`` and
+``CheckpointStore.load(shardings=)``.
+
 The reference's ``hint`` (``with_sharding_constraint``) pins a layout,
 not a value, and one PyTorch process has no layout to pin, so the port
 has no counterpart (``models/attention.py``).
@@ -245,4 +250,30 @@ def cache_shardings(cache_shape, mesh, cfg: ModelConfig,
 
 def replicated(mesh) -> NamedSharding:
     return NamedSharding(mesh, P())
+
+
+# ------------------------------------------------------------- DTensor
+def placements(named_sharding: NamedSharding, device_mesh) -> list:
+    """One DTensor ``Placement`` per dim of ``device_mesh``: ``Shard(d)``
+    on each mesh dim that the spec's entry for tensor dim ``d`` names,
+    ``Replicate()`` on the others.
+
+    An entry of several axes, such as ``("pod", "data")``, splits its dim
+    over them major to minor, as ``jax.sharding`` does. DTensor splits a
+    dim over its mesh dims in mesh-dim order, so the two agree only when
+    the entry lists its axes in that order; any other order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(device_mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(named_sharding.spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"spec entry {entry} of dim {d} does not follow "
+                             f"the mesh's dim order {names}")
+        for m in dims:
+            out[m] = Shard(d)
+    return out
 

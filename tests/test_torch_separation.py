@@ -288,3 +288,25 @@ def test_families_slice_loads_no_jax_and_no_reference():
         assert out.returncode == 0, out.stderr
         assert out.stdout.splitlines()[-1] == \
             "tokens=8 corrected=0 detected=0 injected=0"
+
+
+def test_last_slice_loads_no_jax_and_no_reference():
+    """The launch tooling, elastic resharding and the legacy per-leaf shims
+    alone pull in only torch, numpy and the port, and ``python -m
+    repro_torch.launch.dryrun`` runs a full-size cell on a fake mesh."""
+    code = textwrap.dedent("""
+        import sys
+        import repro_torch.launch.specs, repro_torch.launch.modelflops
+        import repro_torch.launch.modelbytes, repro_torch.launch.step_cost
+        import repro_torch.launch.dryrun, repro_torch.runtime.elastic
+        import repro_torch.core.scrubber, repro_torch.core.injection
+        import repro_torch.core.sidecar, repro_torch.core.recovery
+        import repro_torch.examples.elastic_reshard
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
