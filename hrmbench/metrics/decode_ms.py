@@ -1,0 +1,6 @@
+"""Mean device-synchronised wall ms of a paged decode step over every slot."""
+from hrmbench import readers
+
+
+def read(rec):
+    return readers.span_mean(rec, "decode")
