@@ -41,6 +41,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import tree
 from repro_torch.core.domain import LeafSpec, MemoryDomain
 from repro_torch.core.errormodel import InjectionPlan
@@ -178,28 +179,33 @@ def _run_trial(domain: MemoryDomain, s: LeafSpec, plan: InjectionPlan,
     (``hard_repeat`` consecutive queries for sticky errors, each followed
     by re-applying the plan to the state the query left; worst outcome
     wins), classify per the Fig.1 taxonomy."""
-    clean_leaf = domain.leaf(s.path)
-    corrupted = domain.apply_plan(s.path, plan)       # outside the try
-    verdicts = []
-    reps = hard_repeat if hard else 1
-    for r in range(reps):
-        final_state = unwrap(corrupted.payload)
-        try:
-            out, final_state = eval_fn(final_state)
-            final_leaf = tree.leaves(final_state)[s.pos] \
-                if final_state is not None else clean_leaf
-            verdicts.append(_verdict(golden_out, out, clean_leaf,
-                                     final_leaf))
-        except (FloatingPointError, ZeroDivisionError, ValueError,
-                RuntimeError) as e:
-            if _program_fault(e):
-                raise
-            verdicts.append(golden_out.new_ones(3, dtype=torch.bool))
-        if hard and r + 1 < reps:
-            corrupted = domain.adopt(
-                {root: final_state} if wrapped else final_state
-            ).apply_plan(s.path, plan)
-    rows = torch.stack(verdicts).tolist()       # the trial's one device sync
+    with telemetry.span("campaign.trial", path=s.path,
+                        kind="hard" if hard else "soft"):
+        clean_leaf = domain.leaf(s.path)
+        with telemetry.span("campaign.strike"):
+            corrupted = domain.apply_plan(s.path, plan)   # outside the try
+        verdicts = []
+        reps = hard_repeat if hard else 1
+        for r in range(reps):
+            final_state = unwrap(corrupted.payload)
+            try:
+                out, final_state = eval_fn(final_state)
+                final_leaf = tree.leaves(final_state)[s.pos] \
+                    if final_state is not None else clean_leaf
+                verdicts.append(_verdict(golden_out, out, clean_leaf,
+                                         final_leaf))
+            except (FloatingPointError, ZeroDivisionError, ValueError,
+                    RuntimeError) as e:
+                if _program_fault(e):
+                    raise
+                verdicts.append(golden_out.new_ones(3, dtype=torch.bool))
+            if hard and r + 1 < reps:
+                with telemetry.span("campaign.strike"):
+                    corrupted = domain.adopt(
+                        {root: final_state} if wrapped else final_state
+                    ).apply_plan(s.path, plan)
+        with telemetry.span("campaign.verdict"):
+            rows = torch.stack(verdicts).tolist()   # the trial's one sync
     return max((_outcome(*row) for row in rows), key=_OUTCOME_ORDER.index)
 
 
@@ -274,7 +280,8 @@ def lm_eval_fn(cfg, batch, forward):
     crash marker everywhere when a logit is not finite (tested in the
     logits' own dtype: no float32 copy of the vocab-wide tensor)."""
     def eval_fn(params):
-        logits, _, _ = forward(params, batch, cfg)
-        toks = torch.argmax(logits, dim=-1)
-        return torch.where(torch.isfinite(logits).all(), toks, -1), params
+        with telemetry.span("campaign.query"):     # enqueued, not waited on
+            logits, _, _ = forward(params, batch, cfg)
+            toks = torch.argmax(logits, dim=-1)
+            return torch.where(torch.isfinite(logits).all(), toks, -1), params
     return eval_fn

@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, \
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import tree
 from repro_torch.core.costmodel import RegionProfile
 from repro_torch.core.errormodel import InjectionPlan
@@ -511,16 +512,17 @@ class MemoryDomain:
 
     def _scrubbed(self, paths, window=None
                   ) -> Tuple["MemoryDomain", ScrubReport]:
-        if not self.spec.groups:
-            return self, ScrubReport()
-        leaves = self._leaves()
-        mod, new_sc, corr, unc = _scrub(
-            self.spec, self.spec.paths_key(paths), leaves, self.sidecar,
-            window)
-        for pos, leaf in mod.items():
-            leaves[pos] = leaf
-        report = ScrubReport(corrected=corr, detected_uncorrectable=unc)
-        return self._rebuild(leaves, sidecar=new_sc), report
+        with telemetry.span("domain.scrub"):
+            if not self.spec.groups:
+                return self, ScrubReport()
+            leaves = self._leaves()
+            mod, new_sc, corr, unc = _scrub(
+                self.spec, self.spec.paths_key(paths), leaves, self.sidecar,
+                window)
+            for pos, leaf in mod.items():
+                leaves[pos] = leaf
+            report = ScrubReport(corrected=corr, detected_uncorrectable=unc)
+            return self._rebuild(leaves, sidecar=new_sc), report
 
     # -------------------------------------------------------- refresh
     def adopt(self, state) -> "MemoryDomain":
@@ -544,14 +546,16 @@ class MemoryDomain:
         """Re-encode sidecars after legitimate writes (optimizer update,
         clean-copy reload). One batched encode per tier; ``paths`` limits
         the rewrite to the touched leaves."""
-        dom = self if state is None else self.adopt(state)
-        if not dom.spec.groups:
-            return dom
-        key = dom.spec.paths_key(paths)
-        if key is not None and not key:
-            return dom
-        sidecar = _encode(dom.spec, key, dom._leaves(), dom.sidecar)
-        return MemoryDomain(dom.payload, sidecar, dom.hard_errors, dom.spec)
+        with telemetry.span("domain.refresh"):
+            dom = self if state is None else self.adopt(state)
+            if not dom.spec.groups:
+                return dom
+            key = dom.spec.paths_key(paths)
+            if key is not None and not key:
+                return dom
+            sidecar = _encode(dom.spec, key, dom._leaves(), dom.sidecar)
+            return MemoryDomain(dom.payload, sidecar, dom.hard_errors,
+                                dom.spec)
 
     # ------------------------------------------------------ injection
     def inject(self, rng, n: int = 1, *, hard: bool = False,
@@ -610,15 +614,16 @@ class MemoryDomain:
         ``record_hard=True`` additionally registers the flips in the
         hard-error map (sticky: re-asserted by ``reassert_hard`` until
         retired)."""
-        s = self.spec.by_path[path]
-        leaves = self._leaves()
-        wi, bi = _strikes(plan, leaves[s.pos].device)
-        leaves[s.pos] = ops.inject_bitflips(leaves[s.pos], wi, bi)
-        hard_map = self.hard_errors
-        if record_hard:
-            hard_map = dict(hard_map)
-            _record_hard(hard_map, path, wi, bi)
-        return self._rebuild(leaves, hard_errors=hard_map)
+        with telemetry.span("domain.apply_plan"):
+            s = self.spec.by_path[path]
+            leaves = self._leaves()
+            wi, bi = _strikes(plan, leaves[s.pos].device)
+            leaves[s.pos] = ops.inject_bitflips(leaves[s.pos], wi, bi)
+            hard_map = self.hard_errors
+            if record_hard:
+                hard_map = dict(hard_map)
+                _record_hard(hard_map, path, wi, bi)
+            return self._rebuild(leaves, hard_errors=hard_map)
 
     def reassert_hard(self) -> "MemoryDomain":
         """Re-apply all sticky errors (call after every program write:
@@ -656,41 +661,42 @@ class MemoryDomain:
 
         Pass ``needs`` (a precomputed ``report.needs_recovery()``) to
         avoid fetching the per-leaf counters again."""
-        if needs is None:
-            needs = report.needs_recovery()
-        if not needs:
-            return self, []
-        if response is Response.CONSUME:
-            return self, [{"action": "consume", "paths": list(needs)}]
-        if response is Response.RESTART:
-            raise RestartRequired(str(list(needs)))
-        leaves = self._leaves()
-        hard_map = dict(self.hard_errors)
-        events = []
-        for path, n_words in needs.items():
-            s = self.spec.by_path[path]
-            if strikes is not None:
-                strikes[path] = strikes.get(path, 0) + 1
-            # in storage of its own: a caller that writes the payload in
-            # place (the serving engine's KV pools) never reaches the copy
-            clean = _as_leaf(clean_copy(path), s, leaves[s.pos]).clone()
-            action = ("peer_copy" if response is Response.PEER_COPY
-                      else "reload_clean_copy")
-            if strikes is not None and strikes[path] >= retire_after:
-                if retirement is not None:
-                    # retire the damaged 512-byte blocks: the diff of the
-                    # still-corrupted leaf against its clean replacement
-                    for block in flagged_blocks(leaves[s.pos], clean):
-                        retirement.retire(path, block)
-                # retired blocks are remapped: their sticky cells stop
-                # biting (page-offlining analogue)
-                hard_map.pop(path, None)
-                action += "+retire"
-            leaves[s.pos] = clean
-            events.append({"action": action, "path": path,
-                           "words": int(n_words)})
-        dom = self._rebuild(leaves, hard_errors=hard_map)
-        return dom.refresh(paths=list(needs)), events
+        with telemetry.span("domain.recover"):
+            if needs is None:
+                needs = report.needs_recovery()
+            if not needs:
+                return self, []
+            if response is Response.CONSUME:
+                return self, [{"action": "consume", "paths": list(needs)}]
+            if response is Response.RESTART:
+                raise RestartRequired(str(list(needs)))
+            leaves = self._leaves()
+            hard_map = dict(self.hard_errors)
+            events = []
+            for path, n_words in needs.items():
+                s = self.spec.by_path[path]
+                if strikes is not None:
+                    strikes[path] = strikes.get(path, 0) + 1
+                # in storage of its own: a caller that writes the payload in
+                # place (the serving engine's KV pools) never reaches the copy
+                clean = _as_leaf(clean_copy(path), s, leaves[s.pos]).clone()
+                action = ("peer_copy" if response is Response.PEER_COPY
+                          else "reload_clean_copy")
+                if strikes is not None and strikes[path] >= retire_after:
+                    if retirement is not None:
+                        # retire the damaged 512-byte blocks: the diff of the
+                        # still-corrupted leaf against its clean replacement
+                        for block in flagged_blocks(leaves[s.pos], clean):
+                            retirement.retire(path, block)
+                    # retired blocks are remapped: their sticky cells stop
+                    # biting (page-offlining analogue)
+                    hard_map.pop(path, None)
+                    action += "+retire"
+                leaves[s.pos] = clean
+                events.append({"action": action, "path": path,
+                               "words": int(n_words)})
+            dom = self._rebuild(leaves, hard_errors=hard_map)
+            return dom.refresh(paths=list(needs)), events
 
     # ---------------------------------------------------------- stats
     def stats(self) -> DomainStats:

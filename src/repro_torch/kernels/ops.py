@@ -14,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.kernels.bitflip import bitflip_words_
 from repro_torch.kernels.burst import burst_encode_words, burst_scrub_words
 from repro_torch.kernels.dected import dected_encode_words, dected_scrub_words
@@ -46,8 +47,10 @@ def words_per_tensor(x: torch.Tensor) -> int:
 
 def pack_words_into(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Write ``x``'s bytes into the packed rows ``out`` (a contiguous int64
-    row range) and zero the rest of them."""
+    row range) and zero the rest of them. Counts the rows' bytes as
+    ``packed_bytes``."""
     dst = out.reshape(-1).view(torch.uint8)
+    telemetry.count("packed_bytes", dst.numel())
     n = _nbytes(x)
     if n > dst.numel():
         raise ValueError(f"{n} bytes do not fit {tuple(out.shape)} words")

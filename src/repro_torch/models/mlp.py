@@ -33,6 +33,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.draws import Stream
 from repro_torch.models.common import act_fn, dense_init, dtype_of
@@ -139,49 +140,57 @@ def _moe_apply_local(p, x: torch.Tensor, cfg: ModelConfig, mesh, dp
 
 def _moe_dispatch_tokens(p, xt: torch.Tensor, cfg: ModelConfig
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sort-based grouped dispatch over flat tokens xt: (T, D)."""
+    """Sort-based grouped dispatch over flat tokens xt: (T, D). Counts the
+    routed token copies (``moe_routed``, T·K) and the expert slots computed
+    for them (``moe_slots``, E·C), from shapes."""
     moe = cfg.moe
     T, D = xt.shape
     E, K = moe.n_experts, moe.top_k
     cdt = dtype_of(cfg.compute_dtype)
-    xt = xt.to(cdt)
-    _, topw, tope, aux = _route(p, xt, cfg)
+    with telemetry.inner("moe.route"):
+        xt = xt.to(cdt)
+        _, topw, tope, aux = _route(p, xt, cfg)
 
     # ---- sort-based grouped dispatch
-    C = _capacity(T, moe)
-    dev = xt.device
-    fe = tope.reshape(-1)                                    # (T*K,) experts
-    fw = topw.reshape(-1)
-    ftok = torch.arange(T * K, device=dev) // K              # source tokens
-    order = torch.sort(fe, stable=True).indices              # group by expert
-    fe_s, fw_s, ftok_s = fe[order], fw[order], ftok[order]
-    # slot within expert = sorted rank - start offset of that expert group
-    starts = torch.searchsorted(fe_s, torch.arange(E, device=dev))
-    slot = torch.arange(T * K, device=dev) - starts[fe_s]
-    keep = slot < C
-    row = torch.where(keep, fe_s, E)                         # overflow row E
-    col = torch.where(keep, slot, 0)
+    with telemetry.inner("moe.dispatch"):
+        C = _capacity(T, moe)
+        telemetry.count("moe_routed", T * K)
+        telemetry.count("moe_slots", E * C)
+        dev = xt.device
+        fe = tope.reshape(-1)                                # (T*K,) experts
+        fw = topw.reshape(-1)
+        ftok = torch.arange(T * K, device=dev) // K          # source tokens
+        order = torch.sort(fe, stable=True).indices          # group by expert
+        fe_s, fw_s, ftok_s = fe[order], fw[order], ftok[order]
+        # slot within expert = sorted rank - start offset of its group
+        starts = torch.searchsorted(fe_s, torch.arange(E, device=dev))
+        slot = torch.arange(T * K, device=dev) - starts[fe_s]
+        keep = slot < C
+        row = torch.where(keep, fe_s, E)                     # overflow row E
+        col = torch.where(keep, slot, 0)
 
-    # the kept (row, col) slots are unique: only the dropped overflow row
-    # is written more than once
-    buf = torch.zeros((E + 1, C, D), dtype=cdt, device=dev)
-    buf.index_put_((row, col), xt[ftok_s])
-    buf = buf[:E]                                            # (E, C, D)
-    h = torch.bmm(buf, p["wi"].to(cdt))
-    h = F.silu(h) * torch.bmm(buf, p["wg"].to(cdt))
-    out = torch.bmm(h, p["wo"].to(cdt))                      # (E, C, D)
+        # the kept (row, col) slots are unique: only the dropped overflow
+        # row is written more than once
+        buf = torch.zeros((E + 1, C, D), dtype=cdt, device=dev)
+        buf.index_put_((row, col), xt[ftok_s])
+        buf = buf[:E]                                        # (E, C, D)
+    with telemetry.inner("moe.experts"):
+        h = torch.bmm(buf, p["wi"].to(cdt))
+        h = F.silu(h) * torch.bmm(buf, p["wg"].to(cdt))
+        out = torch.bmm(h, p["wo"].to(cdt))                  # (E, C, D)
+        shared = mlp_apply(p["shared"], xt, cfg) if moe.n_shared else None
 
-    # the reference's gather clamps the overflow row to E - 1, whose
-    # (finite or not) value its zero weight then multiplies
-    gathered = out[row.clamp(max=E - 1), col] \
-        * torch.where(keep, fw_s, 0.0)[:, None].to(cdt)
-    # combine in a fixed order: back to (T, K) order, summed over K
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * K, device=dev)
-    y = gathered[inv].reshape(T, K, D).sum(dim=1)
-
-    if moe.n_shared:
-        y = y + mlp_apply(p["shared"], xt, cfg)
+    with telemetry.inner("moe.combine"):
+        # the reference's gather clamps the overflow row to E - 1, whose
+        # (finite or not) value its zero weight then multiplies
+        gathered = out[row.clamp(max=E - 1), col] \
+            * torch.where(keep, fw_s, 0.0)[:, None].to(cdt)
+        # combine in a fixed order: back to (T, K) order, summed over K
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(T * K, device=dev)
+        y = gathered[inv].reshape(T, K, D).sum(dim=1)
+        if shared is not None:
+            y = y + shared
     return y, aux.to(torch.float32)
 
 

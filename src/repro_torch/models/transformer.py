@@ -48,6 +48,7 @@ from typing import Any, Callable, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import telemetry
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.draws import Stream
@@ -178,9 +179,10 @@ def _embed_inputs(p: Params, batch: Dict[str, torch.Tensor],
 
 
 def _head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
-    w = p["embed"].T if cfg.tie_embeddings else p["head"]
-    return x @ w.to(dtype_of(cfg.compute_dtype))
+    with telemetry.inner("model.head"):
+        x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
+        w = p["embed"].T if cfg.tie_embeddings else p["head"]
+        return x @ w.to(dtype_of(cfg.compute_dtype))
 
 
 def _unstack(tree, n: int):
@@ -241,16 +243,18 @@ def forward(p: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
     if cfg.family in _ATTN_FAMILIES:
         def body(x, layer):
-            h, (k, v) = attn_apply(layer["attn"],
-                                   rmsnorm(x, layer["norm1"], eps), cfg,
-                                   positions)
-            x = x + h
-            hn = rmsnorm(x, layer["norm2"], eps)
-            if cfg.family == "moe":
-                h, a = moe_apply(layer["moe"], hn, cfg)
-            else:
-                h, a = mlp_apply(layer["mlp"], hn, cfg), None
-            return x + h, a, k, v
+            with telemetry.inner("layer.attn"):
+                h, (k, v) = attn_apply(layer["attn"],
+                                       rmsnorm(x, layer["norm1"], eps), cfg,
+                                       positions)
+                x = x + h
+            with telemetry.inner("layer.ffn"):
+                hn = rmsnorm(x, layer["norm2"], eps)
+                if cfg.family == "moe":
+                    h, a = moe_apply(layer["moe"], hn, cfg)
+                else:
+                    h, a = mlp_apply(layer["mlp"], hn, cfg), None
+                return x + h, a, k, v
 
         step = _maybe_remat(body, remat)
         ks, vs = [], []

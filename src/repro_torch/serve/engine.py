@@ -44,6 +44,12 @@ server-month's error budget into the run; availability is computed from
 *measured* recovery/crash events against that month. The storm and the
 strikes draw the reference's numpy stream in the reference's order, so
 both packages strike the same words from the same seed.
+
+Spans (``repro_torch.telemetry``): each loop pass is an
+``engine.iteration``, each HRM verb and step a span inside it, and a
+request's wait from the poll that routed it to its admission an
+``engine.queued`` interval. They record only under ``torch.profiler`` or
+``telemetry.recording()``, and never wait for the device.
 """
 from __future__ import annotations
 
@@ -56,6 +62,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import HRMPolicy, MemoryDomain, Response, Tier, tree
 from repro_torch.core.availability import MINUTES_PER_MONTH
@@ -133,26 +140,29 @@ def paged_decode_logits(params, pool_k: torch.Tensor, pool_v: torch.Tensor,
     valid = (cols[None, :] <= pos[:, None])[:, None, None, None, :]
     for i, layer in enumerate(_unstack(params["blocks"], cfg.n_layers)):
         pk, pv = pool_k[i], pool_v[i]
-        h = rmsnorm(x, layer["norm1"], cfg.norm_eps)
-        q, k_new, v_new = _project_qkv(layer["attn"], h, cfg, positions)
-        # page gather -> contiguous (S, smax, K, dh) view, then the new
-        # token at its position (the contiguous cache's write)
-        vk = pk[table].reshape(S, smax, *pk.shape[2:])
-        vv = pv[table].reshape(S, smax, *pv.shape[2:])
-        vk = torch.where(upd, k_new.to(vk.dtype), vk)
-        vv = torch.where(upd, v_new.to(vv.dtype), vv)
-        scores = torch.einsum("bqkgd,bskd->bkgqs", q,
-                              vk.to(q.dtype)).to(torch.float32)
-        scores = scores / math.sqrt(dh)
-        scores = scores.masked_fill(~valid, -math.inf)
-        w = torch.softmax(scores, dim=-1).to(vv.dtype)
-        o = torch.einsum("bkgqs,bskd->bqkgd", w, vv).reshape(S, 1, H * dh)
-        x = x + o.to(x.dtype) @ layer["attn"]["wo"].to(x.dtype)
-        hn = rmsnorm(x, layer["norm2"], cfg.norm_eps)
-        if cfg.family == "moe":
-            x = x + moe_apply(layer["moe"], hn, cfg)[0]
-        else:
-            x = x + mlp_apply(layer["mlp"], hn, cfg)
+        with telemetry.inner("layer.attn"):
+            h = rmsnorm(x, layer["norm1"], cfg.norm_eps)
+            q, k_new, v_new = _project_qkv(layer["attn"], h, cfg, positions)
+            # page gather -> contiguous (S, smax, K, dh) view, then the new
+            # token at its position (the contiguous cache's write)
+            vk = pk[table].reshape(S, smax, *pk.shape[2:])
+            vv = pv[table].reshape(S, smax, *pv.shape[2:])
+            vk = torch.where(upd, k_new.to(vk.dtype), vk)
+            vv = torch.where(upd, v_new.to(vv.dtype), vv)
+            scores = torch.einsum("bqkgd,bskd->bkgqs", q,
+                                  vk.to(q.dtype)).to(torch.float32)
+            scores = scores / math.sqrt(dh)
+            scores = scores.masked_fill(~valid, -math.inf)
+            w = torch.softmax(scores, dim=-1).to(vv.dtype)
+            o = torch.einsum("bkgqs,bskd->bqkgd", w, vv).reshape(S, 1,
+                                                                  H * dh)
+            x = x + o.to(x.dtype) @ layer["attn"]["wo"].to(x.dtype)
+        with telemetry.inner("layer.ffn"):
+            hn = rmsnorm(x, layer["norm2"], cfg.norm_eps)
+            if cfg.family == "moe":
+                x = x + moe_apply(layer["moe"], hn, cfg)[0]
+            else:
+                x = x + mlp_apply(layer["mlp"], hn, cfg)
         # the new K/V into its page (inactive slots land in the null page
         # and are never read unmasked)
         pk[pid, off] = k_new[:, 0].to(pk.dtype)
@@ -298,29 +308,46 @@ class OnlineEngine:
     # ------------------------------------------------------------ prefill
     def _run_prefill(self, req: Request, pages: np.ndarray
                      ) -> Tuple[int, bool, float]:
-        # only prompt pages are written at prefill; decode fills the rest
-        n_pp = -(-req.prompt_len // self._page_size)
-        sb = n_pp * self._page_size
-        tokens = np.zeros((1, sb), np.int64)
-        tokens[0, :req.prompt_len] = req.prompt
-        t0 = time.perf_counter()
-        first, ok = prefill_write(
-            self._params(), self.cache.pool_k, self.cache.pool_v,
-            self._as_device(tokens), req.prompt_len,
-            self._as_device(pages[:n_pp]), self.cfg, self._page_size)
-        first, ok = _fetch(first, ok)
-        t_wall = time.perf_counter() - t0
+        with telemetry.span("engine.prefill", rid=req.rid):
+            telemetry.count("prefill_tokens", req.prompt_len)
+            # only prompt pages are written at prefill; decode fills the
+            # rest
+            n_pp = -(-req.prompt_len // self._page_size)
+            sb = n_pp * self._page_size
+            tokens = np.zeros((1, sb), np.int64)
+            tokens[0, :req.prompt_len] = req.prompt
+            t0 = time.perf_counter()
+            with telemetry.span("prefill.dispatch"):
+                first, ok = prefill_write(
+                    self._params(), self.cache.pool_k, self.cache.pool_v,
+                    self._as_device(tokens), req.prompt_len,
+                    self._as_device(pages[:n_pp]), self.cfg,
+                    self._page_size)
+            with telemetry.span("prefill.fetch"):
+                first, ok = _fetch(first, ok)
+            t_wall = time.perf_counter() - t0
         return int(first[0]), ok, t_wall
 
     # ------------------------------------------------------------ decode
     def _run_decode(self) -> Tuple[np.ndarray, bool, float]:
-        tokens, pos = self.sched.batch_inputs()
-        t0 = time.perf_counter()
-        nxt, ok = paged_decode_step(
-            self._params(), self.cache.pool_k, self.cache.pool_v,
-            self.cache.device_table(), self._as_device(tokens),
-            self._as_device(pos), self.cfg, self._page_size)
-        nxt, ok = _fetch(nxt, ok)
+        """One decode step: its inputs to the device, the step enqueued,
+        then the fetch of its tokens, which waits for the device. Counts
+        the slots the step runs over and those a request holds."""
+        with telemetry.span("engine.decode"):
+            with telemetry.span("decode.inputs"):
+                tokens, pos = self.sched.batch_inputs()
+                t0 = time.perf_counter()
+                table = self.cache.device_table()
+                tokens, pos = self._as_device(tokens), self._as_device(pos)
+            with telemetry.span("decode.dispatch"):
+                nxt, ok = paged_decode_step(
+                    self._params(), self.cache.pool_k, self.cache.pool_v,
+                    table, tokens, pos, self.cfg, self._page_size)
+            with telemetry.span("decode.fetch"):
+                nxt, ok = _fetch(nxt, ok)
+            if telemetry.enabled():
+                telemetry.count("slots_active", self.sched.n_active)
+                telemetry.count("slots", self.cache.slots)
         return nxt, ok, time.perf_counter() - t0
 
     # -------------------------------------------------------- fault plane
@@ -354,60 +381,63 @@ class OnlineEngine:
             counters.injected_kv += 1
 
     def _scrub_params(self, counters: SLOCounters) -> None:
-        self.param_domain, rep = self.param_domain.scrub()
-        c, u = rep.totals()
-        counters.params_corrected += c
-        counters.params_detected += u
-        needs = rep.needs_recovery()
-        if needs:
-            # peer mode: params are data-parallel-replicated, so the
-            # in-memory clean copy *is* the peer replica's image: same
-            # bits as the disk reload, but billed at the peer-copy MTTR
-            resp = (Response.PEER_COPY if self.peer_recovery
-                    else Response.RELOAD_CLEAN_COPY)
-            self.param_domain, events = self.param_domain.recover(
-                rep, clean_copy=self._clean.__getitem__, response=resp,
-                needs=needs)
-            n_peer = sum(1 for e in events
-                         if e["action"].startswith("peer_copy"))
-            counters.charge_peer_recoveries(n_peer)
-            counters.charge_recoveries(len(events) - n_peer)
+        with telemetry.span("engine.params_scrub"):
+            self.param_domain, rep = self.param_domain.scrub()
+            c, u = rep.totals()
+            counters.params_corrected += c
+            counters.params_detected += u
+            needs = rep.needs_recovery()
+            if needs:
+                # peer mode: params are data-parallel-replicated, so the
+                # in-memory clean copy *is* the peer replica's image: same
+                # bits as the disk reload, but billed at the peer-copy MTTR
+                resp = (Response.PEER_COPY if self.peer_recovery
+                        else Response.RELOAD_CLEAN_COPY)
+                self.param_domain, events = self.param_domain.recover(
+                    rep, clean_copy=self._clean.__getitem__, response=resp,
+                    needs=needs)
+                n_peer = sum(1 for e in events
+                             if e["action"].startswith("peer_copy"))
+                counters.charge_peer_recoveries(n_peer)
+                counters.charge_recoveries(len(events) - n_peer)
 
     def _scrub_kv(self, counters: SLOCounters) -> None:
         """Access-path ECC: check the pools against the sidecar the last
         refresh wrote."""
-        self.kv_domain, rep = self.kv_domain.scrub()
-        c, u = rep.totals()
-        counters.kv_corrected += c
-        counters.kv_detected += u
-        changed = bool(c)                # SEC-DED repaired pool words
-        needs = rep.needs_recovery()
-        if self.peer_recovery and needs and self._kv_peer is not None:
-            # the peer snapshot is the post-refresh pool image: the
-            # state a replica that didn't take this storm's strikes
-            # holds, so the gather restores flagged pool leaves
-            # bit-identically without a disk round-trip
-            self.kv_domain, events = self.kv_domain.recover(
-                rep, clean_copy=self._kv_peer.__getitem__,
-                response=Response.PEER_COPY, needs=needs)
-            counters.charge_peer_recoveries(len(events))
-            changed = True
-        if changed:
-            self._adopt_kv()
+        with telemetry.span("engine.kv_check"):
+            self.kv_domain, rep = self.kv_domain.scrub()
+            c, u = rep.totals()
+            counters.kv_corrected += c
+            counters.kv_detected += u
+            changed = bool(c)                # SEC-DED repaired pool words
+            needs = rep.needs_recovery()
+            if self.peer_recovery and needs and self._kv_peer is not None:
+                # the peer snapshot is the post-refresh pool image: the
+                # state a replica that didn't take this storm's strikes
+                # holds, so the gather restores flagged pool leaves
+                # bit-identically without a disk round-trip
+                self.kv_domain, events = self.kv_domain.recover(
+                    rep, clean_copy=self._kv_peer.__getitem__,
+                    response=Response.PEER_COPY, needs=needs)
+                counters.charge_peer_recoveries(len(events))
+                changed = True
+            if changed:
+                self._adopt_kv()
 
     def _refresh_kv(self) -> None:
         """Write-path ECC: re-encode the KV sidecar over this step's
         legitimate writes (or only adopt the pools when untiered)."""
-        if self.kv_tier is not Tier.NONE:
-            self.kv_domain = self.kv_domain.refresh(self._kv_state())
-        else:
-            self.kv_domain = self.kv_domain.adopt(self._kv_state())
-        if self.peer_recovery:
-            # peer image: a replica that doesn't take this storm's
-            # strikes holds exactly this post-write pool state; a clone,
-            # since the next step writes the pools in place
-            self._kv_peer = {"kv_cache/k": self.cache.pool_k.clone(),
-                             "kv_cache/v": self.cache.pool_v.clone()}
+        with telemetry.span("engine.kv_refresh"):
+            if self.kv_tier is not Tier.NONE:
+                self.kv_domain = self.kv_domain.refresh(self._kv_state())
+            else:
+                self.kv_domain = self.kv_domain.adopt(self._kv_state())
+            if self.peer_recovery:
+                # peer image: a replica that doesn't take this storm's
+                # strikes holds exactly this post-write pool state; a clone,
+                # since the next step writes the pools in place
+                self._kv_peer = {"kv_cache/k": self.cache.pool_k.clone(),
+                                 "kv_cache/v": self.cache.pool_v.clone()}
 
     def _crash_reset(self, router: RequestRouter, counters: SLOCounters
                      ) -> None:
@@ -430,6 +460,94 @@ class OnlineEngine:
         self.kv_domain = MemoryDomain.protect(self._kv_state(),
                                               kv_policy(self.kv_tier))
         self._kv_peer = None             # stale after the restart
+
+    def _iteration(self, it: int, now: float, router: RequestRouter,
+                   counters: SLOCounters, storm: deque,
+                   routed: Dict[int, int]) -> float:
+        """One pass of ``run``'s loop; returns the clock after it."""
+        # 1. access-path KV check: catches strikes injected after the
+        #    previous refresh, before any re-encode can launder them
+        if self.kv_tier is not Tier.NONE:
+            self._scrub_kv(counters)
+        # 2. params patrol scrub on the policy cadence
+        if (self.params_policy is not None and self.scrub_every > 0
+                and it > 0 and it % self.scrub_every == 0):
+            self._scrub_params(counters)
+        # 3. route arrivals, admit prefills into free slots
+        with telemetry.span("engine.admit"):
+            now = self._admit(now, router, counters, routed)
+        # 4. one continuous-batching decode step over every slot
+        if self.sched.n_active:
+            nxt, ok, t_wall = self._run_decode()
+            counters.decode_steps += 1
+            now = self._advance(
+                now, self.service.decode_cost(self.sched.n_active), t_wall)
+            if ok:
+                self.sched.record_step(nxt, now)
+            else:
+                self._crash_reset(router, counters)
+        elif not router.queue:
+            nxt_t = router.next_arrival()
+            if nxt_t is not None:
+                now = max(now, nxt_t)    # idle: jump to next arrival
+        # 5. write-path ECC over this step's legitimate writes
+        self._refresh_kv()
+        # 6. the storm: fire every error due by the current clock
+        if storm and storm[0][0] <= now:
+            with telemetry.span("engine.strike"):
+                while storm and storm[0][0] <= now:
+                    _, strike = storm.popleft()
+                    if strike is None:
+                        self._inject_one(counters)
+                    else:
+                        self._inject_bound(strike, counters)
+        if self.debug_invariants:
+            self.cache.check_invariants()
+        return now
+
+    def _admit(self, now: float, router: RequestRouter,
+               counters: SLOCounters, routed: Dict[int, int]) -> float:
+        """Route the arrivals due by ``now`` and prefill up to
+        ``max_prefills_per_step`` of the queue into free slots; returns
+        the clock after them. While recording, each admitted request's
+        wait from the poll that routed it is an ``engine.queued``
+        interval."""
+        n = router.poll(now)
+        if n and telemetry.enabled():
+            t = time.perf_counter_ns()
+            for req in list(router.queue)[-n:]:
+                routed[req.rid] = t
+        admitted = 0
+        while admitted < self.max_prefills_per_step:
+            req = router.peek()
+            if req is None:
+                break
+            if self.cache.pages_needed(req.footprint_tokens()) > \
+                    self.cache.max_pages_per_slot:
+                router.take()            # can never fit: shed it
+                router.shed.append(req)
+                continue
+            if not self.sched.can_admit(req):
+                break
+            router.take()
+            t_routed = routed.pop(req.rid, None)
+            if t_routed is not None:
+                telemetry.interval("engine.queued", t_routed,
+                                   time.perf_counter_ns(), rid=req.rid)
+            slot = self.sched.free_slot()
+            pages = self.cache.alloc(slot, req.footprint_tokens())
+            first, ok, t_wall = self._run_prefill(req, pages)
+            counters.prefills += 1
+            now = self._advance(
+                now, self.service.prefill_cost(req.prompt_len), t_wall)
+            if not ok:
+                self.cache.release(slot)
+                router.requeue(req)
+                self._crash_reset(router, counters)
+                break
+            self.sched.admit(req, first, now)
+            admitted += 1
+        return now
 
     # ---------------------------------------------------------------- run
     def run(self, trace: List[Request], *, storm_errors: int = 0,
@@ -459,72 +577,14 @@ class OnlineEngine:
                 self.rng.uniform(0.0, span, storm_errors)))
         now = 0.0
         it = 0
+        routed: Dict[int, int] = {}     # rid -> ns of the poll that routed it
         while not (router.drained and self.sched.n_active == 0):
             if it >= max_iters:
                 raise RuntimeError(f"engine wedged after {max_iters} "
                                    f"iterations")
-            # 1. access-path KV check: catches strikes injected after the
-            #    previous refresh, before any re-encode can launder them
-            if self.kv_tier is not Tier.NONE:
-                self._scrub_kv(counters)
-            # 2. params patrol scrub on the policy cadence
-            if (self.params_policy is not None and self.scrub_every > 0
-                    and it > 0 and it % self.scrub_every == 0):
-                self._scrub_params(counters)
-            # 3. route arrivals, admit prefills into free slots
-            router.poll(now)
-            admitted = 0
-            while admitted < self.max_prefills_per_step:
-                req = router.peek()
-                if req is None:
-                    break
-                if self.cache.pages_needed(req.footprint_tokens()) > \
-                        self.cache.max_pages_per_slot:
-                    router.take()            # can never fit: shed it
-                    router.shed.append(req)
-                    continue
-                if not self.sched.can_admit(req):
-                    break
-                router.take()
-                slot = self.sched.free_slot()
-                pages = self.cache.alloc(slot, req.footprint_tokens())
-                first, ok, t_wall = self._run_prefill(req, pages)
-                counters.prefills += 1
-                now = self._advance(
-                    now, self.service.prefill_cost(req.prompt_len), t_wall)
-                if not ok:
-                    self.cache.release(slot)
-                    router.requeue(req)
-                    self._crash_reset(router, counters)
-                    break
-                self.sched.admit(req, first, now)
-                admitted += 1
-            # 4. one continuous-batching decode step over every slot
-            if self.sched.n_active:
-                nxt, ok, t_wall = self._run_decode()
-                counters.decode_steps += 1
-                now = self._advance(
-                    now, self.service.decode_cost(self.sched.n_active),
-                    t_wall)
-                if ok:
-                    self.sched.record_step(nxt, now)
-                else:
-                    self._crash_reset(router, counters)
-            elif not router.queue:
-                nxt_t = router.next_arrival()
-                if nxt_t is not None:
-                    now = max(now, nxt_t)    # idle: jump to next arrival
-            # 5. write-path ECC over this step's legitimate writes
-            self._refresh_kv()
-            # 6. the storm: fire every error due by the current clock
-            while storm and storm[0][0] <= now:
-                _, strike = storm.popleft()
-                if strike is None:
-                    self._inject_one(counters)
-                else:
-                    self._inject_bound(strike, counters)
-            if self.debug_invariants:
-                self.cache.check_invariants()
+            with telemetry.span("engine.iteration", it=it):
+                now = self._iteration(it, now, router, counters, storm,
+                                      routed)
             it += 1
         # drain the storm tail + one final scrub so every injected error
         # is detected/recovered and accounted before availability is read
