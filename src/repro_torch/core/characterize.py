@@ -50,6 +50,7 @@ from repro_torch.core.taxonomy import Outcome, OutcomeStats
 from repro_torch.core.trace import ErrorTrace, TraceReplayer
 from repro_torch.kernels._build import KernelError
 from repro_torch.kernels.ops import LANES
+from repro_torch.models.query_graph import QueryGraph
 
 
 @dataclass
@@ -278,10 +279,16 @@ def run_trace_campaign(eval_fn: Callable, state, trace: ErrorTrace, *,
 def lm_eval_fn(cfg, batch, forward):
     """Standard LM 'query': greedy tokens of a forward pass, or the -1
     crash marker everywhere when a logit is not finite (tested in the
-    logits' own dtype: no float32 copy of the vocab-wide tensor)."""
+    logits' own dtype: no float32 copy of the vocab-wide tensor). The
+    query owns a ``QueryGraph``, ambient while it calls ``forward``: on
+    the card the port's forward then replays one captured CUDA graph from
+    the query's third run on (``models/query_graph.py``)."""
+    graph = QueryGraph()
+
     def eval_fn(params):
         with telemetry.span("campaign.query"):     # enqueued, not waited on
-            logits, _, _ = forward(params, batch, cfg)
+            with graph.engaged():
+                logits, _, _ = forward(params, batch, cfg)
             toks = torch.argmax(logits, dim=-1)
             return torch.where(torch.isfinite(logits).all(), toks, -1), params
     return eval_fn

@@ -52,7 +52,7 @@ from repro_torch import telemetry
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.draws import Stream
-from repro_torch.models import mamba2, xlstm
+from repro_torch.models import mamba2, query_graph, xlstm
 from repro_torch.models.attention import attn_apply, attn_decode, attn_init
 from repro_torch.models.common import (cross_entropy, cross_entropy_sharded,
                                        dense_init, dtype_of, rmsnorm)
@@ -232,7 +232,12 @@ def _maybe_remat(fn: Callable, remat: str) -> Callable:
 def forward(p: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             remat: str = "none", return_cache: bool = False):
     """Full-sequence forward. Returns (logits, aux_loss, cache|None); the
-    cache holds ``init_cache``'s leaves, sized to the sequence."""
+    cache holds ``init_cache``'s leaves, sized to the sequence. Inside a
+    campaign query the call goes to its ``query_graph.QueryGraph``, which
+    replays the captured forward where it can."""
+    if query_graph.active is not None:
+        return query_graph.active.forward(forward, p, batch, cfg, remat,
+                                          return_cache)
     _check_ported(cfg)
     x, _, _ = _embed_inputs(p, batch, cfg)
     S = x.shape[1]

@@ -21,7 +21,9 @@ Otherwise a span site costs one flag read and returns a shared no-op: no
 
 It never synchronises with the device, recording or not: spans read the
 host's clock, and counters take Python numbers that the caller computes
-from shapes.
+from shapes. Inside ``collecting()`` counts go to the block's own dict
+instead, recording or not: a captured CUDA graph's counts, which each of
+its replays adds again with ``count``.
 
 The record is the process's own, one thread's at a time: spans are opened
 from layers (the kernels' wrappers, the dispatch) that take no recorder
@@ -90,6 +92,7 @@ _spans: List[Span] = []
 _open: List[int] = []            # indices of the open spans, innermost last
 _loose: Dict[str, int] = {}      # counts made with no span open
 _forced = 0                      # depth of ``recording()``
+_collectors: List[Dict[str, int]] = []   # open ``collecting()`` blocks
 
 
 def enabled() -> bool:
@@ -113,7 +116,12 @@ def inner(name: str):
 
 
 def count(name: str, n: int) -> None:
-    """Add ``n`` to counter ``name`` of the innermost open span."""
+    """Add ``n`` to counter ``name`` of the innermost open span, or of the
+    innermost ``collecting()`` block."""
+    if _collectors:
+        c = _collectors[-1]
+        c[name] = c.get(name, 0) + n
+        return
     if not (_forced or _profiling()):
         return
     if _open:
@@ -155,6 +163,19 @@ def recording() -> Iterator[None]:
         yield
     finally:
         _forced -= 1
+
+
+@contextlib.contextmanager
+def collecting() -> Iterator[Dict[str, int]]:
+    """Collect the counts made inside the block into the dict it yields,
+    recording or not, instead of into the record: a captured CUDA graph's
+    counts, which each replay then adds with ``count``."""
+    got: Dict[str, int] = {}
+    _collectors.append(got)
+    try:
+        yield got
+    finally:
+        _collectors.pop()
 
 
 def records() -> List[Span]:
