@@ -1,8 +1,9 @@
 from repro_torch.configs.base import (  # noqa: F401
     DECODE_32K, LONG_500K, MULTI_POD, PREFILL_32K, SHAPE_BY_NAME, SHAPES,
-    SINGLE_POD, TRAIN_4K, MeshConfig, ModelConfig, MoEConfig, SSMConfig,
-    ShapeSpec, TrainConfig, XLSTMConfig, shape_applicability,
+    SINGLE_POD, TRAIN_4K, MeshConfig, MLAConfig, ModelConfig, MoEConfig,
+    SSMConfig, ShapeSpec, TrainConfig, XLSTMConfig, is_mla,
+    shape_applicability,
 )
 from repro_torch.configs.registry import (  # noqa: F401
-    ASSIGNED_ARCHS, get_config, get_tiny, list_archs,
+    ASSIGNED_ARCHS, PORT_ARCHS, get_config, get_tiny, list_archs,
 )

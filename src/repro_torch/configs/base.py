@@ -11,6 +11,11 @@ the frontend fields are the reference's, defaults included.
 ``shard_hints`` selects the MoE's per-group dispatch under an ambient mesh
 (``models/mlp.py``); ``MoEConfig.dispatch`` is carried and, as in the
 reference, read by nothing.
+
+``MLAConfig`` is the port's own: a DeepSeek-V2 decoder, which the
+reference does not have. It subclasses ``ModelConfig``, so every other
+configuration's fields, and ``dataclasses.asdict`` of it, stay the
+reference's.
 """
 from __future__ import annotations
 
@@ -106,6 +111,43 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class MLAConfig(ModelConfig):
+    """A DeepSeek-V2 decoder (arXiv:2405.04434): multi-head latent
+    attention (MLA) under YaRN RoPE, ``n_dense_layers`` leading dense
+    SwiGLU layers of width ``d_ff`` before the MoE layers, and top-k gates
+    renormalised only under ``norm_topk_prob``.
+
+    MLA caches one ``kv_lora_rank``-wide latent and one shared
+    ``qk_rope_head_dim``-wide RoPE key a token; each head's query and key
+    are ``qk_nope_head_dim + qk_rope_head_dim`` wide, its value
+    ``v_head_dim``. The ``rope_*`` fields are the published
+    ``rope_scaling`` (YaRN over ``rope_original_max`` positions), whose
+    ``mscale`` equals ``mscale_all_dim``, so that the cos/sin factor is
+    1 and only the scores' temperature remains."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_dense_layers: int = 1
+    norm_topk_prob: bool = False
+    rope_factor: float = 40.0
+    rope_original_max: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale_all_dim: float = 0.707
+
+    @property
+    def latent_dim(self) -> int:
+        """Values the cache holds a token and layer: latent and RoPE key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+def is_mla(cfg: ModelConfig) -> bool:
+    return isinstance(cfg, MLAConfig)
 
 
 @dataclass(frozen=True)

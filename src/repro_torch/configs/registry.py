@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
 ``get_config(arch)`` returns the full config, ``get_tiny(arch)`` the
-reduced test config of the same family. The port lists every architecture
-of the reference's registry, in the reference's order.
+reduced test config of the same family. ``list_archs()`` lists every
+architecture of the reference's registry, in the reference's order;
+``PORT_ARCHS`` lists, apart from it, those the port alone runs.
 """
 from __future__ import annotations
 
@@ -28,6 +29,12 @@ _MODULES: Dict[str, str] = {
     "lm-100m": "lm_100m",                 # end-to-end trainable ~100M example
 }
 
+# arch id -> module name: architectures the reference does not have
+_PORT_MODULES: Dict[str, str] = {
+    "deepseek-v2-lite": "deepseek_v2_lite",   # latent attention (MLA)
+}
+PORT_ARCHS: List[str] = list(_PORT_MODULES)
+
 ASSIGNED_ARCHS: List[str] = [
     "zamba2-2.7b", "granite-moe-3b-a800m", "deepseek-moe-16b", "llama3-405b",
     "nemotron-4-340b", "llama3-8b", "qwen2-72b", "hubert-xlarge",
@@ -36,9 +43,11 @@ ASSIGNED_ARCHS: List[str] = [
 
 
 def _module(arch: str):
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
-    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+    name = _MODULES.get(arch) or _PORT_MODULES.get(arch)
+    if name is None:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{sorted(_MODULES) + PORT_ARCHS}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
 
 
 def get_config(arch: str) -> ModelConfig:

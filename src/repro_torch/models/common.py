@@ -68,8 +68,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., S, H, Dh); positions: broadcastable to (..., S). Rotates
     the two halves of each head (not interleaved pairs), in float32."""
-    dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)                 # (Dh/2,)
+    return rotate(x, positions, rope_freqs(x.shape[-1], theta, x.device))
+
+
+def yarn_freqs(dim: int, theta: float, factor: float, original_max: int,
+               beta_fast: float, beta_slow: float, device=None
+               ) -> torch.Tensor:
+    """YaRN's RoPE frequencies (DeepSeek-V2's ``DeepseekV2YarnRotary
+    Embedding``): ``theta``'s frequencies where a pair turns more than
+    ``beta_fast`` times over ``original_max`` positions, those divided by
+    ``factor`` where it turns fewer than ``beta_slow`` times, a linear
+    ramp over the pairs between."""
+    def dim_of(turns: float) -> float:
+        return dim * math.log(original_max / (turns * 2 * math.pi)) \
+            / (2 * math.log(theta))
+
+    low = max(math.floor(dim_of(beta_fast)), 0)
+    high = min(math.ceil(dim_of(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    base = theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                  device=device) / dim)
+    extra, inter = 1.0 / base, 1.0 / (factor * base)
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    keep = 1.0 - ramp                 # the share of the unscaled frequency
+    return inter * (1.0 - keep) + extra * keep
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature: ``0.1 mscale ln(factor) + 1``."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def rotate(x: torch.Tensor, positions: torch.Tensor,
+           freqs: torch.Tensor) -> torch.Tensor:
+    """``apply_rope`` at the frequencies ``freqs`` (Dh/2,)."""
     ang = positions[..., None].to(torch.float32) * freqs    # (..., S, Dh/2)
     ang = ang[..., None, :]                                 # (..., S, 1, Dh/2)
     cos, sin = torch.cos(ang), torch.sin(ang)

@@ -97,13 +97,16 @@ def _capacity(T: int, moe) -> int:
 def _route(p, xt: torch.Tensor, cfg: ModelConfig):
     """(gates (T,E), top weights (T,K) renormalised, top experts (T,K),
     aux loss). The top-k is a stable descending sort, so ties go to the
-    lower expert id, as ``jax.lax.top_k`` breaks them."""
+    lower expert id, as ``jax.lax.top_k`` breaks them. A configuration
+    with ``norm_topk_prob`` false (``MLAConfig``'s DeepSeek-V2) keeps the
+    top weights as the softmax gives them."""
     moe = cfg.moe
     logits = xt.to(torch.float32) @ p["router"]              # (T, E)
     gates = torch.softmax(logits, dim=-1)
     topw, tope = torch.sort(gates, dim=-1, descending=True, stable=True)
     topw, tope = topw[:, :moe.top_k], tope[:, :moe.top_k]
-    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    if getattr(cfg, "norm_topk_prob", True):
+        topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
     # load-balancing aux loss (Switch-style)
     density = F.one_hot(tope[:, 0], moe.n_experts).to(torch.float32).mean(0)
     aux = moe.n_experts * torch.sum(density * gates.mean(0))

@@ -67,6 +67,34 @@ def _nest(flat: List[Tuple[Path, torch.Tensor]]) -> dict:
     return tree
 
 
+def leaves(tree) -> List[Tuple[Path, torch.Tensor]]:
+    """``(path, leaf)`` of every leaf of ``tree``, in ``_flat``'s order."""
+    out: List[Tuple[Path, torch.Tensor]] = []
+    _flat(tree, (), out)
+    return out
+
+
+def capture(fn: Callable, *args, pool=None
+            ) -> Tuple[torch.cuda.CUDAGraph, object, Dict[str, int]]:
+    """``(graph, outputs, counts)``: ``fn(*args)``'s ops captured into a
+    new CUDA graph (with no query graph ambient), its static outputs, and
+    the counts it made, collected instead of recorded. ``pool``, another
+    graph's ``pool()``, makes the capture allocate from that graph's
+    memory, which may then no longer be replayed."""
+    graph = torch.cuda.CUDAGraph()
+    with _ambient(None), telemetry.collecting() as counts, \
+            torch.cuda.graph(graph, pool=pool):
+        out = fn(*args)
+    return graph, out, counts
+
+
+def replay(graph: torch.cuda.CUDAGraph, counts: Dict[str, int]) -> None:
+    """Launch ``graph`` and count what its capture counted."""
+    graph.replay()
+    for name, n in counts.items():
+        telemetry.count(name, n)
+
+
 def _captures_on(device: torch.device) -> bool:
     """Whether a graph is captured for tensors on ``device``."""
     return device.type == "cuda"
@@ -86,8 +114,7 @@ def signature(p, batch, cfg, remat: str = "none",
     tok = batch["tokens"]
     if not _captures_on(tok.device):
         return None
-    flat: List[Tuple[Path, torch.Tensor]] = []
-    _flat(p, (), flat)
+    flat = leaves(p)
     for _, t in flat:
         if not isinstance(t, torch.Tensor) or t.requires_grad \
                 or t.device != tok.device or not t.is_contiguous():
@@ -167,18 +194,14 @@ class QueryGraph:
         self._tokens = torch.empty_like(batch["tokens"])
         weights = _nest([(path, c) for (path, _), c in
                          zip(flat, self._mirror.copies)])
-        graph = torch.cuda.CUDAGraph()
-        with _ambient(None), telemetry.collecting() as counts, \
-                torch.cuda.graph(graph):
-            logits, aux, _ = forward(weights, {"tokens": self._tokens}, cfg)
-        self._graph, self._out, self._counts = graph, (logits, aux), counts
+        self._graph, out, self._counts = capture(
+            forward, weights, {"tokens": self._tokens}, cfg)
+        self._out = out[:2]
 
     def _replay(self, flat, batch):
         copied = self._mirror.sync([t for _, t in flat])
         self._tokens.copy_(batch["tokens"])
-        self._graph.replay()
-        for name, n in self._counts.items():
-            telemetry.count(name, n)
+        replay(self._graph, self._counts)
         telemetry.count("query_replays", 1)
         telemetry.count("query_copied_bytes", copied)
         logits, aux = self._out

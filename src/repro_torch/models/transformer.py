@@ -5,7 +5,12 @@ Counterpart of ``repro.models.transformer``: the same trees, key paths,
 shapes and dtypes, with per-layer weights stacked on leading axes.
 
   dense | moe  attention + (MLP | MoE) blocks; ``forward``'s ``aux`` sums
-               the MoE layers' load-balancing losses.
+               the MoE layers' load-balancing losses. Under an
+               ``MLAConfig`` (the port's own, DeepSeek-V2) the attention
+               is ``models/mla.py``'s latent attention, the first
+               ``n_dense_layers`` blocks (``dense_blocks``) have a dense
+               MLP and the rest (``blocks``) the MoE, and the cache holds
+               one ``latent`` a token and layer.
   audio        (hubert) the dense blocks, bidirectional where
                ``cfg.causal`` is false and without RoPE, over precomputed
                frame embeddings projected by ``frame_proj`` (no ``embed``);
@@ -50,9 +55,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import telemetry
 from repro_torch._device import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, is_mla
 from repro_torch.draws import Stream
-from repro_torch.models import mamba2, query_graph, xlstm
+from repro_torch.models import mamba2, mla, query_graph, xlstm
 from repro_torch.models.attention import attn_apply, attn_decode, attn_init
 from repro_torch.models.common import (cross_entropy, cross_entropy_sharded,
                                        dense_init, dtype_of, rmsnorm)
@@ -93,7 +98,16 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
         return torch.ones(shape, dtype=pdt, device=dev)
 
     p: Params = {}
-    if cfg.family in _ATTN_FAMILIES:
+    if is_mla(cfg):
+        n_dense = cfg.n_dense_layers
+        for key, n, ffn in (("dense_blocks", n_dense, "mlp"),
+                            ("blocks", L - n_dense, "moe")):
+            p[key] = {"norm1": ones(n, D),
+                      "attn": mla.mla_init(draws, cfg, (n,)),
+                      "norm2": ones(n, D),
+                      ffn: (mlp_init if ffn == "mlp" else moe_init)(
+                          draws, cfg, (n,))}
+    elif cfg.family in _ATTN_FAMILIES:
         blocks = {"norm1": ones(L, D), "attn": attn_init(draws, cfg, (L,)),
                   "norm2": ones(L, D)}
         if cfg.family == "moe":
@@ -143,6 +157,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     def rep(lead: tuple, a: torch.Tensor) -> torch.Tensor:
         return a.expand(lead + a.shape).contiguous()
 
+    if is_mla(cfg):
+        return {"latent": zeros(cfg.n_layers, batch, max_seq,
+                                cfg.latent_dim)}
     if cfg.family in _KV_FAMILIES:
         return {"k": zeros(cfg.n_layers, *kv), "v": zeros(cfg.n_layers, *kv)}
     if cfg.family == "hybrid":
@@ -183,6 +200,16 @@ def _head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
         w = p["embed"].T if cfg.tie_embeddings else p["head"]
         return x @ w.to(dtype_of(cfg.compute_dtype))
+
+
+def _layers(p: Params, cfg: ModelConfig):
+    """The attention families' per-layer weights in order: under an
+    ``MLAConfig`` the dense blocks, then the MoE blocks."""
+    if not is_mla(cfg):
+        return _unstack(p["blocks"], cfg.n_layers)
+    n_dense = cfg.n_dense_layers
+    return _unstack(p["dense_blocks"], n_dense) \
+        + _unstack(p["blocks"], cfg.n_layers - n_dense)
 
 
 def _unstack(tree, n: int):
@@ -247,31 +274,37 @@ def forward(p: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     cache = None
 
     if cfg.family in _ATTN_FAMILIES:
+        latent = is_mla(cfg)
+
         def body(x, layer):
             with telemetry.inner("layer.attn"):
-                h, (k, v) = attn_apply(layer["attn"],
-                                       rmsnorm(x, layer["norm1"], eps), cfg,
-                                       positions)
+                hn = rmsnorm(x, layer["norm1"], eps)
+                if latent:
+                    h, kv = mla.mla_apply(layer["attn"], hn, cfg, positions)
+                    kv = (kv,)
+                else:
+                    h, kv = attn_apply(layer["attn"], hn, cfg, positions)
                 x = x + h
             with telemetry.inner("layer.ffn"):
                 hn = rmsnorm(x, layer["norm2"], eps)
-                if cfg.family == "moe":
+                if "moe" in layer:
                     h, a = moe_apply(layer["moe"], hn, cfg)
                 else:
                     h, a = mlp_apply(layer["mlp"], hn, cfg), None
-                return x + h, a, k, v
+                return (x + h, a) + kv
 
         step = _maybe_remat(body, remat)
-        ks, vs = [], []
-        for layer in _unstack(p["blocks"], cfg.n_layers):
-            x, a, k, v = step(x, layer)
+        kvs = []
+        for layer in _layers(p, cfg):
+            x, a, *kv = step(x, layer)
             if a is not None:
                 aux = aux + a
             if return_cache:
-                ks.append(k)
-                vs.append(v)
+                kvs.append(kv)
         if return_cache:
-            cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+            names = ("latent",) if latent else ("k", "v")
+            cache = {n: torch.stack([kv[j] for kv in kvs])
+                     for j, n in enumerate(names)}
 
     elif cfg.family == "hybrid":
         shared = p["shared"]
@@ -361,7 +394,7 @@ def decode_step(p: Params, token: torch.Tensor, pos: int,
                 cache: Dict[str, torch.Tensor], cfg: ModelConfig):
     """token: (B,) int; pos: the token's position -> (logits (B,V), cache).
 
-    Each layer writes its new k/v, or its new recurrent state, into
+    Each layer writes its new k/v (latent), or its new recurrent state, into
     ``cache`` in place (layer views of the stacked tensors), so the
     returned cache is the one passed in. Under the vision frontend ``pos``
     counts the patch prefix. The audio family raises the reference's
@@ -373,13 +406,25 @@ def decode_step(p: Params, token: torch.Tensor, pos: int,
         raise ValueError(f"family {cfg.family} does not decode")
 
     if cfg.family in _KV_FAMILIES:
-        for i, layer in enumerate(_unstack(p["blocks"], cfg.n_layers)):
-            h, _, _ = attn_decode(
-                layer["attn"], rmsnorm(x, layer["norm1"], eps),
-                cache["k"][i], cache["v"][i], pos, cfg)
+        latent = is_mla(cfg)
+        for i, layer in enumerate(_layers(p, cfg)):
+            hn = rmsnorm(x, layer["norm1"], eps)
+            if latent:
+                c = cache["latent"][i]                # (B, Smax, latent_dim)
+                positions = torch.full((x.shape[0], 1), pos,
+                                       dtype=torch.int64, device=x.device)
+                c[:, pos] = mla.latent(layer["attn"], hn, cfg,
+                                       positions)[:, 0]
+                valid = (torch.arange(c.shape[1], device=x.device)
+                         <= pos).expand(x.shape[0], -1)
+                h = mla.mla_decode(layer["attn"], hn, c, valid, cfg,
+                                   positions)
+            else:
+                h, _, _ = attn_decode(layer["attn"], hn, cache["k"][i],
+                                      cache["v"][i], pos, cfg)
             x = x + h
             hn = rmsnorm(x, layer["norm2"], eps)
-            if cfg.family == "moe":
+            if "moe" in layer:
                 h, _ = moe_apply(layer["moe"], hn, cfg)
             else:
                 h = mlp_apply(layer["mlp"], hn, cfg)

@@ -20,7 +20,10 @@ paper's region split:
 
 The reference compiles its decode and prefill into jitted programs; here
 they are two plain functions on tensors, ``paged_decode_step`` and
-``prefill_write``, run eagerly on the device the parameters lie on. Both
+``prefill_write``, run eagerly on the device the parameters lie on (under
+an ``MLAConfig``, the port's own latent attention, ``latent_decode_step``
+and ``latent_prefill_write`` over the one ``latent`` pool; the decode step
+replayed as a CUDA graph on the card, ``serve/decode_graph.py``). Both
 write the new K/V into the pools in place (the reference donates nothing
 and returns new pools): the pools belong to the cache alone. The KV
 domain's payload may be the same tensors, and the write-path refresh
@@ -48,7 +51,10 @@ both packages strike the same words from the same seed.
 Spans (``repro_torch.telemetry``): each loop pass is an
 ``engine.iteration``, each HRM verb and step a span inside it, and a
 request's wait from the poll that routed it to its admission an
-``engine.queued`` interval. They record only under ``torch.profiler`` or
+``engine.queued`` interval. A latent decode step counts the positions
+its slots attend (``mla_positions_attended``: Σ pos + 1 over the slots
+a request holds) and those it gathers (``mla_positions_gathered``: every
+slot's every page). They record only under ``torch.profiler`` or
 ``telemetry.recording()``, and never wait for the device.
 """
 from __future__ import annotations
@@ -67,11 +73,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import HRMPolicy, MemoryDomain, Response, Tier, tree
 from repro_torch.core.availability import MINUTES_PER_MONTH
 from repro_torch.core.trace import BoundStrike, ErrorTrace, bind_trace
+from repro_torch.models import mla
 from repro_torch.models.attention import _project_qkv
 from repro_torch.models.common import dtype_of, rmsnorm
 from repro_torch.models.mlp import mlp_apply, moe_apply
-from repro_torch.models.transformer import (_check_ported, _head, _unstack,
-                                            forward)
+from repro_torch.models.transformer import (_check_ported, _head, _layers,
+                                            _unstack, forward)
+from repro_torch.serve.decode_graph import DecodeGraph
 from repro_torch.serve.metrics import SLOCounters, SLOReport, build_report
 from repro_torch.serve.paged_kv import PagedKVCache
 from repro_torch.serve.router import RequestRouter
@@ -206,6 +214,68 @@ def prefill_write(params, pool_k: torch.Tensor, pool_v: torch.Tensor,
     return torch.argmax(last, dim=-1), torch.isfinite(last).all()
 
 
+def latent_decode_logits(params, pool: torch.Tensor, table: torch.Tensor,
+                         tokens: torch.Tensor, pos: torch.Tensor,
+                         cfg: ModelConfig, page_size: int) -> torch.Tensor:
+    """``paged_decode_logits`` over the latent pool of an ``MLAConfig``:
+    per layer each slot's new latent is written into its page first, then
+    the slots' pages are gathered into the contiguous (S, P*page_size,
+    latent_dim) view and ``models.mla.mla_decode`` attends it, absorbed,
+    over the positions up to each slot's own. The gathered view holds what
+    ``decode_step``'s contiguous cache holds."""
+    _check_ported(cfg)
+    S, P = table.shape
+    x = params["embed"][tokens][:, None, :].to(dtype_of(cfg.compute_dtype))
+    positions = pos[:, None]                                  # (S,1)
+    pid = table.gather(1, (pos // page_size)[:, None])[:, 0]  # (S,)
+    off = pos % page_size
+    valid = torch.arange(P * page_size, device=pos.device)[None, :] \
+        <= pos[:, None]
+    for i, layer in enumerate(_layers(params, cfg)):
+        pl = pool[i]
+        with telemetry.inner("layer.attn"):
+            h = rmsnorm(x, layer["norm1"], cfg.norm_eps)
+            pl[pid, off] = mla.latent(layer["attn"], h, cfg,
+                                      positions)[:, 0].to(pl.dtype)
+            lat = pl[table].reshape(S, P * page_size, pl.shape[-1])
+            x = x + mla.mla_decode(layer["attn"], h, lat, valid, cfg,
+                                   positions)
+        with telemetry.inner("layer.ffn"):
+            hn = rmsnorm(x, layer["norm2"], cfg.norm_eps)
+            if "moe" in layer:
+                x = x + moe_apply(layer["moe"], hn, cfg)[0]
+            else:
+                x = x + mlp_apply(layer["mlp"], hn, cfg)
+    return _head(params, x, cfg)[:, 0]
+
+
+def latent_decode_step(params, pool: torch.Tensor, table: torch.Tensor,
+                       tokens: torch.Tensor, pos: torch.Tensor,
+                       cfg: ModelConfig, page_size: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``latent_decode_logits`` -> (greedy next tokens (S,), ok)."""
+    logits = latent_decode_logits(params, pool, table, tokens, pos, cfg,
+                                  page_size)
+    return torch.argmax(logits, dim=-1), torch.isfinite(logits).all()
+
+
+def latent_prefill_write(params, pool: torch.Tensor, tokens: torch.Tensor,
+                         true_len: int, pages: torch.Tensor,
+                         cfg: ModelConfig, page_size: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``prefill_write`` for an ``MLAConfig``: the prompt's latents (the
+    padded tail's zeroed) into its pages of the latent pool."""
+    logits, _, cache = forward(params, {"tokens": tokens}, cfg,
+                               return_cache=True)
+    last = logits[0, true_len - 1]
+    keep = (torch.arange(tokens.shape[1], device=tokens.device)
+            < true_len)[None, :, None]
+    lat = cache["latent"][:, 0].masked_fill(~keep, 0).to(pool.dtype)
+    pool[:, pages] = lat.reshape(lat.shape[0], pages.shape[0], page_size,
+                                 lat.shape[-1])
+    return torch.argmax(last, dim=-1), torch.isfinite(last).all()
+
+
 def _fetch(values: torch.Tensor, ok: torch.Tensor
            ) -> Tuple[np.ndarray, bool]:
     """(values, ok) on the host in one transfer: waits for the device."""
@@ -264,6 +334,9 @@ class OnlineEngine:
                                   device=self.device)
         self.sched = ContinuousBatchingScheduler(
             self.cache, max_prefills_per_step=max_prefills_per_step)
+        # the latent decode step, replayed as a CUDA graph on the card
+        self._latent_step = DecodeGraph(latent_decode_step) \
+            if self.cache.latent else None
 
         # params domain: full protection under the given policy, or a
         # sidecar-free leaf table (injection targeting only) when None
@@ -285,8 +358,7 @@ class OnlineEngine:
         return self.param_domain.payload
 
     def _kv_state(self) -> dict:
-        return {"kv_cache": {"k": self.cache.pool_k,
-                             "v": self.cache.pool_v}}
+        return {"kv_cache": dict(self.cache.pools)}
 
     def _advance(self, now: float, model_cost: float, t_wall: float
                  ) -> float:
@@ -318,10 +390,12 @@ class OnlineEngine:
             tokens[0, :req.prompt_len] = req.prompt
             t0 = time.perf_counter()
             with telemetry.span("prefill.dispatch"):
-                first, ok = prefill_write(
-                    self._params(), self.cache.pool_k, self.cache.pool_v,
-                    self._as_device(tokens), req.prompt_len,
-                    self._as_device(pages[:n_pp]), self.cfg,
+                write = latent_prefill_write if self.cache.latent \
+                    else prefill_write
+                first, ok = write(
+                    self._params(), *self.cache.pools.values(),
+                    self._as_device(tokens),
+                    req.prompt_len, self._as_device(pages[:n_pp]), self.cfg,
                     self._page_size)
             with telemetry.span("prefill.fetch"):
                 first, ok = _fetch(first, ok)
@@ -340,20 +414,26 @@ class OnlineEngine:
                 table = self.cache.device_table()
                 tokens, pos = self._as_device(tokens), self._as_device(pos)
             with telemetry.span("decode.dispatch"):
-                nxt, ok = paged_decode_step(
-                    self._params(), self.cache.pool_k, self.cache.pool_v,
-                    table, tokens, pos, self.cfg, self._page_size)
+                step = self._latent_step or paged_decode_step
+                nxt, ok = step(self._params(),
+                               *self.cache.pools.values(), table, tokens,
+                               pos, self.cfg, self._page_size)
             with telemetry.span("decode.fetch"):
                 nxt, ok = _fetch(nxt, ok)
             if telemetry.enabled():
                 telemetry.count("slots_active", self.sched.n_active)
                 telemetry.count("slots", self.cache.slots)
+                if self.cache.latent:
+                    telemetry.count("mla_positions_attended", sum(
+                        s.pos + 1 for s in self.sched.slots
+                        if s is not None))
+                    telemetry.count("mla_positions_gathered",
+                                    int(table.numel()) * self._page_size)
         return nxt, ok, time.perf_counter() - t0
 
     # -------------------------------------------------------- fault plane
     def _adopt_kv(self) -> None:
-        kv = self.kv_domain.payload["kv_cache"]
-        self.cache.adopt_pools(kv["k"], kv["v"])
+        self.cache.adopt_pools(self.kv_domain.payload["kv_cache"])
 
     def _inject_one(self, counters: SLOCounters) -> None:
         pb = self.param_domain.stats().payload_bytes
@@ -436,8 +516,8 @@ class OnlineEngine:
                 # peer image: a replica that doesn't take this storm's
                 # strikes holds exactly this post-write pool state; a clone,
                 # since the next step writes the pools in place
-                self._kv_peer = {"kv_cache/k": self.cache.pool_k.clone(),
-                                 "kv_cache/v": self.cache.pool_v.clone()}
+                self._kv_peer = {f"kv_cache/{name}": pool.clone()
+                                 for name, pool in self.cache.pools.items()}
 
     def _crash_reset(self, router: RequestRouter, counters: SLOCounters
                      ) -> None:
@@ -455,8 +535,8 @@ class OnlineEngine:
         assert clean == {s.path for s in self.param_domain.spec.leaves}
         for req in reversed(self.sched.evict_all()):
             router.requeue(req)
-        self.cache.adopt_pools(torch.zeros_like(self.cache.pool_k),
-                               torch.zeros_like(self.cache.pool_v))
+        self.cache.adopt_pools({name: torch.zeros_like(pool) for name, pool
+                                in self.cache.pools.items()})
         self.kv_domain = MemoryDomain.protect(self._kv_state(),
                                               kv_policy(self.kv_tier))
         self._kv_peer = None             # stale after the restart

@@ -5,9 +5,11 @@ Counterpart of ``repro.serve.paged_kv``, for the attention-cache families
 dense, MoE and VLM. The hybrid and xLSTM families keep recurrent state,
 not pages, and the audio family does not decode: they raise the
 reference's ``ValueError``.
-Layout: two pools ``(n_layers, n_pages, page_size, n_kv_heads,
-head_dim)`` (keys and values), torch tensors in the compute dtype on the
-device the cache was made for. Page 0 is the reserved *null* page:
+Layout: named pools, torch tensors in the compute dtype on the device the
+cache was made for: ``k`` and ``v``, each ``(n_layers, n_pages,
+page_size, n_kv_heads, head_dim)``, or under an ``MLAConfig`` (latent
+attention, the port's own) the one pool ``latent``, ``(n_layers,
+n_pages, page_size, latent_dim)``. Page 0 is the reserved *null* page:
 page-table slots that a request has not grown into yet point at it, and
 decode steps of inactive scheduler slots write their K/V there. The null
 page is only ever read at attention positions past a slot's current
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, is_mla
 from repro_torch.models.common import dtype_of
 
 NULL_PAGE = 0
@@ -52,11 +54,17 @@ class PagedKVCache:
             raise ValueError("need at least one real page beside the null "
                              "page")
         dev = resolve_device(device)
-        shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
-                 cfg.head_dim)
         cdt = dtype_of(cfg.compute_dtype)
-        self.pool_k = torch.zeros(shape, dtype=cdt, device=dev)
-        self.pool_v = torch.zeros(shape, dtype=cdt, device=dev)
+        lead = (cfg.n_layers, n_pages, page_size)
+        self.latent = is_mla(cfg)
+        if self.latent:
+            shapes = {"latent": lead + (cfg.latent_dim,)}
+        else:
+            kv = lead + (cfg.n_kv_heads, cfg.head_dim)
+            shapes = {"k": kv, "v": kv}
+        self.pools: Dict[str, torch.Tensor] = {
+            name: torch.zeros(shape, dtype=cdt, device=dev)
+            for name, shape in shapes.items()}
         self.page_size = page_size
         self.n_pages = n_pages
         self.slots = slots
@@ -68,8 +76,21 @@ class PagedKVCache:
         self._owner: Dict[int, int] = {}          # page -> slot
 
     @property
+    def pool_k(self) -> torch.Tensor:
+        return self.pools["k"]
+
+    @property
+    def pool_v(self) -> torch.Tensor:
+        return self.pools["v"]
+
+    @property
     def device(self) -> torch.device:
-        return self.pool_k.device
+        return next(iter(self.pools.values())).device
+
+    @property
+    def pool_bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in self.pools.values())
 
     # ------------------------------------------------------------- sizing
     def pages_needed(self, tokens: int) -> int:
@@ -120,24 +141,24 @@ class PagedKVCache:
         return torch.as_tensor(self.table, dtype=torch.int64,
                                device=self.device)
 
-    def adopt_pools(self, pool_k: torch.Tensor, pool_v: torch.Tensor
-                    ) -> None:
+    def adopt_pools(self, pools: Dict[str, torch.Tensor]) -> None:
         """Take the pools a domain verb returned (struck, corrected or
-        reloaded) as the cache's own."""
-        self.pool_k = pool_k
-        self.pool_v = pool_v
+        reloaded), by name, as the cache's own."""
+        if set(pools) != set(self.pools):
+            raise KeyError(f"pools {sorted(pools)} are not the cache's "
+                           f"{sorted(self.pools)}")
+        self.pools = {name: pools[name] for name in self.pools}
 
     def contiguous_view(self, slot: int, length: int) -> tuple:
         """Gather one slot's first ``length`` positions back into the
-        contiguous ``(L, 1, length, K, dh)`` layout (test oracle glue)."""
+        contiguous ``(L, 1, length, ...)`` layout, a tensor a pool (``k``
+        and ``v``, or ``latent``; test oracle glue)."""
         n = self.pages_needed(length)
         pages = torch.as_tensor(self.table[slot, :n], dtype=torch.int64,
                                 device=self.device)
-        k = self.pool_k[:, pages].reshape(
-            self.pool_k.shape[0], 1, -1, *self.pool_k.shape[3:])
-        v = self.pool_v[:, pages].reshape(
-            self.pool_v.shape[0], 1, -1, *self.pool_v.shape[3:])
-        return k[:, :, :length], v[:, :, :length]
+        return tuple(pool[:, pages].reshape(pool.shape[0], 1, -1,
+                                            *pool.shape[3:])[:, :, :length]
+                     for pool in self.pools.values())
 
     # --------------------------------------------------------- invariants
     def check_invariants(self) -> None:
