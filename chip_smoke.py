@@ -2857,6 +2857,9 @@ def online_full_width(params, dev, by_path: dict) -> dict:
             if first:
                 real, checked = _paged_logit_check(cfg, checks)
                 engine_mod.paged_decode_logits = checked
+                # the check reads the step on the host: decode eagerly, not
+                # through the engine's decode graph, which would capture it
+                eng._decode = engine_mod.paged_decode_step
             _build.reset_launches()
             torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
@@ -4244,6 +4247,7 @@ def families_online(dev, by_path: dict) -> None:
     cfg16 = _no_drop(cfg)
     tc16, trace16 = _online_traffic(cfg16, n_requests=FAMILY_CHECK_REQUESTS)
     eng = _online_engine(cfg16, params, tc16, "detect_recover", "parity_r")
+    eng._decode = engine_mod.paged_decode_step   # eager: the check syncs
     checks = []
     real, checked = _paged_logit_check(cfg16, checks)
     engine_mod.paged_decode_logits = checked

@@ -74,17 +74,29 @@ def leaves(tree) -> List[Tuple[Path, torch.Tensor]]:
     return out
 
 
-def capture(fn: Callable, *args, pool=None
+def capture(fn: Callable, *args, stream: torch.cuda.Stream, pool=None
             ) -> Tuple[torch.cuda.CUDAGraph, object, Dict[str, int]]:
-    """``(graph, outputs, counts)``: ``fn(*args)``'s ops captured into a
-    new CUDA graph (with no query graph ambient), its static outputs, and
-    the counts it made, collected instead of recorded. ``pool``, another
-    graph's ``pool()``, makes the capture allocate from that graph's
-    memory, which may then no longer be replayed."""
+    """``(graph, outputs, counts)``: ``fn(*args)``'s ops captured on the
+    side ``stream`` into a new CUDA graph (with no query graph ambient),
+    its static outputs, and the counts it made, collected instead of
+    recorded. ``pool``, another graph's ``pool()``, makes the capture
+    allocate from that graph's memory, which may then no longer be
+    replayed; its blocks serve only a capture on that graph's stream.
+
+    Unlike ``torch.cuda.graph`` this neither synchronises the device nor
+    empties the allocator's cache first: an engine captures its decode
+    again after every params scrub, and an emptied cache would make the
+    next prefill, KV check and scrub ``cudaMalloc`` their buffers
+    anew."""
     graph = torch.cuda.CUDAGraph()
+    stream.wait_stream(torch.cuda.current_stream())
     with _ambient(None), telemetry.collecting() as counts, \
-            torch.cuda.graph(graph, pool=pool):
-        out = fn(*args)
+            torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool)
+        try:
+            out = fn(*args)
+        finally:
+            graph.capture_end()
     return graph, out, counts
 
 
@@ -195,7 +207,8 @@ class QueryGraph:
         weights = _nest([(path, c) for (path, _), c in
                          zip(flat, self._mirror.copies)])
         self._graph, out, self._counts = capture(
-            forward, weights, {"tokens": self._tokens}, cfg)
+            forward, weights, {"tokens": self._tokens}, cfg,
+            stream=torch.cuda.Stream(self._tokens.device))
         self._out = out[:2]
 
     def _replay(self, flat, batch):

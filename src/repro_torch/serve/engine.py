@@ -20,11 +20,12 @@ paper's region split:
 
 The reference compiles its decode and prefill into jitted programs; here
 they are two plain functions on tensors, ``paged_decode_step`` and
-``prefill_write``, run eagerly on the device the parameters lie on (under
-an ``MLAConfig``, the port's own latent attention, ``latent_decode_step``
-and ``latent_prefill_write`` over the one ``latent`` pool; the decode step
-replayed as a CUDA graph on the card, ``serve/decode_graph.py``). Both
-write the new K/V into the pools in place (the reference donates nothing
+``prefill_write``, on the device the parameters lie on (under an
+``MLAConfig``, the port's own latent attention, ``latent_decode_step``
+and ``latent_prefill_write`` over the one ``latent`` pool). Prefill runs
+eagerly; the decode step, either one, runs through one ``DecodeGraph``,
+which replays it as a CUDA graph on the card (``serve/decode_graph.py``).
+Both write the new K/V into the pools in place (the reference donates nothing
 and returns new pools): the pools belong to the cache alone. The KV
 domain's payload may be the same tensors, and the write-path refresh
 re-encodes its sidecar right after; every other holder gets a clone. The
@@ -334,9 +335,10 @@ class OnlineEngine:
                                   device=self.device)
         self.sched = ContinuousBatchingScheduler(
             self.cache, max_prefills_per_step=max_prefills_per_step)
-        # the latent decode step, replayed as a CUDA graph on the card
-        self._latent_step = DecodeGraph(latent_decode_step) \
-            if self.cache.latent else None
+        # the decode step the cache calls for, replayed as one CUDA graph
+        # on the card
+        self._decode = DecodeGraph(latent_decode_step if self.cache.latent
+                                   else paged_decode_step)
 
         # params domain: full protection under the given policy, or a
         # sidecar-free leaf table (injection targeting only) when None
@@ -414,10 +416,10 @@ class OnlineEngine:
                 table = self.cache.device_table()
                 tokens, pos = self._as_device(tokens), self._as_device(pos)
             with telemetry.span("decode.dispatch"):
-                step = self._latent_step or paged_decode_step
-                nxt, ok = step(self._params(),
-                               *self.cache.pools.values(), table, tokens,
-                               pos, self.cfg, self._page_size)
+                nxt, ok = self._decode(self._params(),
+                                       *self.cache.pools.values(), table,
+                                       tokens, pos, self.cfg,
+                                       self._page_size)
             with telemetry.span("decode.fetch"):
                 nxt, ok = _fetch(nxt, ok)
             if telemetry.enabled():

@@ -6,7 +6,10 @@ loaded by path: the one copy the card's comparison runs too): YaRN,
 un-renormalised gates and the dense layer 0, the benchmark's layout of the
 published model, the HRM verbs over the latent pool, the engine's run and
 its spans and counters. The reference decompresses every position; the
-port's decode attends the latent with W_UK absorbed into the query.
+port's decode attends the latent with W_UK absorbed into the query. The
+engine's one decode graph (``serve/decode_graph.py``) is held here over
+both caches: the latent pool and, at tiny deepseek-moe-16b, the ``k`` and
+``v`` pools of ``paged_decode_step``.
 
 Tolerances, in float32 compute against the float32 reference: logits
 within 1e-4 x max|logit| (the two sum products in other orders, and the
@@ -38,7 +41,9 @@ from repro_torch.models.common import yarn_freqs, yarn_mscale
 from repro_torch.models.mlp import _route, mlp_apply, moe_apply
 from repro_torch.serve import OnlineEngine, PagedKVCache, Request
 from repro_torch.serve.engine import (kv_policy, latent_decode_logits,
-                                      latent_prefill_write)
+                                      latent_decode_step,
+                                      latent_prefill_write,
+                                      paged_decode_step, prefill_write)
 from repro_torch.serve.metrics import SLOCounters
 from repro_torch.serve.router import RequestRouter
 
@@ -474,3 +479,150 @@ def test_decode_graph_replays_equal_the_eager_step_on_the_card():
     c = telemetry.summary()["counters"]
     assert c["decode_replays"] == 7             # every step but the first
     assert c["decode_captures"] == 3            # steps 1, 4 and 6
+
+
+# ----------------------------------- the decode graph over the k/v pools
+MHA = get_tiny("deepseek-moe-16b")
+
+
+def _mha_inputs(cfg, device, lens=(5, 11), page=4):
+    """A paged k/v cache on ``device`` with two prefilled slots and the
+    third idle (its table row all null page), and the weights."""
+    w = init_params(cfg, seed=3, device=device)
+    cache = PagedKVCache(cfg, n_pages=40, page_size=page, slots=3,
+                         max_pages_per_slot=8, device=device)
+    rng = np.random.default_rng(20)
+    for slot, n in enumerate(lens):
+        pages = cache.alloc(slot, n + 9)
+        n_pp = cache.pages_needed(n)
+        toks = torch.zeros(1, n_pp * page, dtype=torch.long, device=device)
+        toks[0, :n] = torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
+                                      device=device)
+        prefill_write(w, cache.pool_k, cache.pool_v, toks, n,
+                      torch.as_tensor(pages[:n_pp], device=device), cfg,
+                      page)
+    return w, cache
+
+
+def _mha_step_inputs(k: int, device):
+    """Step ``k``'s tokens and positions: two held slots and the idle one
+    (token 0 at position 0, into the null page)."""
+    return (torch.tensor([3 + k, 7, 0], device=device),
+            torch.tensor([5 + k, 11 + k, 0], device=device))
+
+
+def test_mha_decode_graph_runs_eagerly_on_the_cpu():
+    from repro_torch.serve.decode_graph import DecodeGraph
+    w, cache = _mha_inputs(MHA, CPU)
+    pk, pv = cache.pool_k, cache.pool_v
+    tk, tv = pk.clone(), pv.clone()
+    graph = DecodeGraph(paged_decode_step)
+    table = cache.device_table()
+    for k in range(3):
+        tokens, pos = _mha_step_inputs(k, CPU)
+        got = graph(w, pk, pv, table, tokens, pos, MHA, 4)
+        want = paged_decode_step(w, tk, tv, table, tokens, pos, MHA, 4)
+        assert torch.equal(got[0], want[0]) and bool(got[1])
+    assert torch.equal(pk, tk) and torch.equal(pv, tv)
+    assert graph._graph is None
+
+
+def test_decode_graph_key_over_two_pools():
+    """A pool written in place keeps the key; the V pool alone replaced,
+    or a leaf replaced, makes a new one."""
+    from repro_torch.serve.decode_graph import key_of
+    w, cache = _mha_inputs(MHA, CPU)
+    pk, pv, table = cache.pool_k, cache.pool_v, cache.device_table()
+    key = key_of(w, pk, pv, table)
+    pk[:, 1:].mul_(-1)
+    assert key_of(w, pk, pv, table) == key
+    assert key_of(w, pk, pv.clone(), table) != key
+    w["blocks"]["attn"]["wq"] = w["blocks"]["attn"]["wq"].clone()
+    assert key_of(w, pk, pv, table) != key
+
+
+@pytest.mark.parametrize("cfg,step", [(MHA, paged_decode_step),
+                                      (CFG, latent_decode_step)],
+                         ids=["kv", "latent"])
+def test_engine_builds_one_decode_graph_around_its_cache_s_step(cfg, step):
+    from repro_torch.serve.decode_graph import DecodeGraph
+    w = init_params(cfg, seed=0, device=CPU) if cfg is MHA else _weights()
+    eng = OnlineEngine(cfg, w, slots=2, page_size=4, max_prompt_len=8,
+                       max_new_cap=4)
+    assert isinstance(eng._decode, DecodeGraph)
+    assert eng._decode._step is step
+
+
+@pytest.mark.card
+def test_mha_decode_graph_replays_equal_the_eager_step_on_the_card():
+    """``paged_decode_step`` eagerly against the graph's over the same
+    inputs, tokens and both pools bit for bit (the null page too: one
+    idle slot writes it): the warm-up, capture and replays; a parameter
+    leaf replaced (captured again); a word struck in place (read by the
+    replay as struck); the K pool adopted alone (captured again)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.serve.decode_graph import DecodeGraph
+    dev = torch.device("cuda")
+    cfg = MHA.replace(compute_dtype="bfloat16", param_dtype="bfloat16")
+    w, cache = _mha_inputs(cfg, dev)
+    pk, pv = cache.pool_k, cache.pool_v
+    tk, tv = pk.clone(), pv.clone()
+    graph = DecodeGraph(paged_decode_step)
+    table = cache.device_table()
+    with telemetry.recording():
+        for k in range(8):
+            if k == 4:                      # a scrub's rebuilt leaf
+                w["blocks"]["attn"]["wq"] = w["blocks"]["attn"]["wq"] * 1.5
+            if k == 5:                      # a word struck in place
+                w["blocks"]["attn"]["wk"].view(-1)[:64].mul_(-3)
+            if k == 6:                      # an adopted K pool
+                pk, tk = pk.clone(), tk.clone()
+            tokens, pos = _mha_step_inputs(k, dev)
+            got = graph(w, pk, pv, table, tokens, pos, cfg, 4)
+            want = paged_decode_step(w, tk, tv, table, tokens, pos, cfg, 4)
+            assert torch.equal(got[0], want[0]), k
+            assert bool(got[1]) == bool(want[1]), k
+            assert torch.equal(pk, tk) and torch.equal(pv, tv), k
+    c = telemetry.summary()["counters"]
+    assert c["decode_replays"] == 7             # every step but the first
+    assert c["decode_captures"] == 3            # steps 1, 4 and 6
+
+
+@pytest.mark.card
+def test_engine_on_a_kv_cache_serves_as_its_eager_twin_on_the_card(
+        monkeypatch):
+    """``OnlineEngine`` on tiny deepseek-moe-16b in bfloat16 under
+    ``detect_recover_l`` params and ``parity_r`` KV, with a storm and a
+    scrub every 4 iterations: its tokens and counters equal those of the
+    same engine whose decode graph is the eager step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import DESIGN_POINTS
+    dev = torch.device("cuda")
+    cfg = MHA.replace(compute_dtype="bfloat16", param_dtype="bfloat16")
+    rng = np.random.default_rng(4)
+    reqs = [Request(rid=i, arrival=0.01 * i,
+                    prompt=rng.integers(0, cfg.vocab_size, int(p),
+                                        dtype=np.int32), max_new=int(m))
+            for i, (p, m) in enumerate(zip(rng.integers(3, 15, 8),
+                                           rng.integers(2, 8, 8)))]
+
+    def serve(eager: bool):
+        eng = OnlineEngine(cfg, init_params(cfg, seed=3, device=dev),
+                           slots=3, page_size=4, max_prompt_len=16,
+                           max_new_cap=8,
+                           policy=DESIGN_POINTS["detect_recover_l"](),
+                           kv_tier=Tier.PARITY_R, scrub_every=4,
+                           debug_invariants=True, seed=1)
+        if eager:
+            monkeypatch.setattr(eng, "_decode", paged_decode_step)
+        with telemetry.recording():
+            report, responses = eng.run(reqs, storm_errors=12)
+        return report.counters, responses, telemetry.summary()["counters"]
+
+    counters, responses, c = serve(eager=False)
+    assert c["decode_captures"] >= 2 and c["decode_replays"] > 0
+    want_counters, want_responses, _ = serve(eager=True)
+    assert responses == want_responses
+    assert counters == want_counters
