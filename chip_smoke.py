@@ -2780,26 +2780,26 @@ def online_card_vs_cpu(dev, by_path: dict) -> None:
 
 
 def _paged_logit_check(cfg, checks: list):
-    """A stand-in for ``serve.engine.paged_decode_logits`` that, for its
-    first PAGED_CHECK_STEPS calls, also runs ``models.decode_step`` for
-    each active slot (batch 1, its own position) on that slot's pages
-    gathered into a contiguous cache before the step, and records
-    (max |diff|, max |logit|, tokens agreeing where the top-2 margin
-    exceeds the diff) per step."""
-    from repro_torch.models import decode_step
-    from repro_torch.serve import engine as engine_mod
-    real = engine_mod.paged_decode_logits
+    """A stand-in for ``models.transformer.paged_decode_logits`` (where
+    ``paged_decode_step`` looks it up) that, for its first
+    PAGED_CHECK_STEPS calls, also runs ``models.decode_step`` for each
+    active slot (batch 1, its own position) on that slot's pages gathered
+    into a contiguous cache before the step, and records (max |diff|, max
+    |logit|, tokens agreeing where the top-2 margin exceeds the diff) per
+    step."""
+    from repro_torch.models import decode_step, transformer
+    real = transformer.paged_decode_logits
 
-    def checked(params, pool_k, pool_v, table, tokens, pos, cfg_, ps):
+    def checked(params, pools, table, tokens, pos, cfg_, ps):
         if len(checks) >= PAGED_CHECK_STEPS:
-            return real(params, pool_k, pool_v, table, tokens, pos, cfg_, ps)
+            return real(params, pools, table, tokens, pos, cfg_, ps)
         active = [int(i) for i in (pos > 0).nonzero()[:, 0].tolist()]
-        L, P = pool_k.shape[0], table.shape[1]
-        caches = [{n: pool[:, table[i]].reshape(
-                       L, 1, P * ps, *pool.shape[3:])
-                   for n, pool in (("k", pool_k), ("v", pool_v))}
+        P = table.shape[1]
+        caches = [{name: pool[:, table[i]].reshape(
+                       pool.shape[0], 1, P * ps, *pool.shape[3:])
+                   for name, pool in pools.items()}
                   for i in active]
-        logits = real(params, pool_k, pool_v, table, tokens, pos, cfg_, ps)
+        logits = real(params, pools, table, tokens, pos, cfg_, ps)
         diff = top = 0.0
         agree = True
         for i, cache in zip(active, caches):
@@ -2826,6 +2826,7 @@ def online_full_width(params, dev, by_path: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.runtime.serve_loop import serve_batch
+    from repro_torch.models import transformer
     from repro_torch.serve import engine as engine_mod, incorrect_rate
     cfg = get_config("llama3-8b").replace(n_layers=N_LAYERS)
     tc, trace = _online_traffic(cfg)
@@ -2856,7 +2857,7 @@ def online_full_width(params, dev, by_path: dict) -> dict:
                 ONLINE_CONFIGS[0][0]
             if first:
                 real, checked = _paged_logit_check(cfg, checks)
-                engine_mod.paged_decode_logits = checked
+                transformer.paged_decode_logits = checked
                 # the check reads the step on the host: decode eagerly, not
                 # through the engine's decode graph, which would capture it
                 eng._decode = engine_mod.paged_decode_step
@@ -2871,7 +2872,7 @@ def online_full_width(params, dev, by_path: dict) -> dict:
                 _sync()
             finally:
                 if first:
-                    engine_mod.paged_decode_logits = real
+                    transformer.paged_decode_logits = real
             wall_s = time.perf_counter() - t
             name = f"serve_online_{tag}_{'storm' if storm else 'golden'}"
             _path_launches(name, need, by_path)
@@ -4205,7 +4206,7 @@ def families_online(dev, by_path: dict) -> None:
     whose first PAGED_CHECK_STEPS decode steps are held against
     ``decode_step`` on each active slot's gathered pages."""
     from repro_torch.kernels import _build
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, transformer
     from repro_torch.serve import engine as engine_mod, incorrect_rate
     cfg = _family_cfg(FAMILY_ONLINE_ARCH)
     params = init_params(cfg, seed=SEED, device=dev)
@@ -4250,11 +4251,11 @@ def families_online(dev, by_path: dict) -> None:
     eng._decode = engine_mod.paged_decode_step   # eager: the check syncs
     checks = []
     real, checked = _paged_logit_check(cfg16, checks)
-    engine_mod.paged_decode_logits = checked
+    transformer.paged_decode_logits = checked
     try:
         rep, _ = eng.run(trace16, storm_errors=0)
     finally:
-        engine_mod.paged_decode_logits = real
+        transformer.paged_decode_logits = real
     print(f"families online {FAMILY_ONLINE_ARCH} capacity_factor="
           f"{FAMILY_NO_DROP}: {rep.summary()}")
     _print_paged_check(checks)
@@ -4679,7 +4680,7 @@ def _vlm_paged_check(cfg, params, batch) -> None:
     for i in range(B):
         pages = torch.as_tensor(kv.alloc(i, S0 + VLM_PAGED_STEPS),
                                 dtype=torch.int64, device=token.device)
-        for pool, name in ((kv.pool_k, "k"), (kv.pool_v, "v")):
+        for name, pool in kv.pools.items():
             pool[:, pages[:n_pp]] = cache[name][:, i].reshape(
                 pool.shape[0], n_pp, VLM_PAGE, *pool.shape[3:])
     del cache
@@ -4689,8 +4690,8 @@ def _vlm_paged_check(cfg, params, batch) -> None:
     table = kv.device_table()
     pos = torch.full((B,), S0, dtype=torch.int64, device=token.device)
     for _ in range(VLM_PAGED_STEPS):
-        logits = checked(params, kv.pool_k, kv.pool_v, table, token, pos,
-                         cfg, VLM_PAGE)
+        logits = checked(params, kv.pools, table, token, pos, cfg,
+                         VLM_PAGE)
         token = torch.argmax(logits, dim=-1)
         pos = pos + 1
     diff = max(d for _, d, _, _ in checks)

@@ -101,17 +101,26 @@ def attn_decode(p, x: torch.Tensor, k_cache: torch.Tensor,
     ``dynamic_update_slice``), and the scores cover positions ``<= pos``.
     """
     B = x.shape[0]
-    dh, H = cfg.head_dim, cfg.n_heads
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
     k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", q,
-                          k_cache.to(q.dtype)).to(torch.float32)
-    scores = scores / math.sqrt(dh)
     valid = torch.arange(k_cache.shape[1], device=x.device) <= pos
-    scores = scores.masked_fill(~valid, -math.inf)
-    w = torch.softmax(scores, dim=-1).to(v_cache.dtype)
-    o = torch.einsum("bkgqs,bskd->bqkgd", w, v_cache).reshape(B, 1, H * dh)
-    y = o.to(x.dtype) @ p["wo"].to(x.dtype)
+    y = attend(p, q, k_cache, v_cache, valid, cfg, x.dtype)
     return y, k_cache, v_cache
+
+
+def attend(p, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           valid: torch.Tensor, cfg: ModelConfig, dtype: torch.dtype
+           ) -> torch.Tensor:
+    """One query a row, q (B,1,K,G,dh), against k, v (B,T,K,dh) over the
+    positions ``valid`` marks (broadcast against the scores (B,K,G,1,T)):
+    the output projection y (B,1,D) in ``dtype``."""
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q,
+                          k.to(q.dtype)).to(torch.float32)
+    scores = scores / math.sqrt(cfg.head_dim)
+    scores = scores.masked_fill(~valid, -math.inf)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, v).reshape(
+        q.shape[0], 1, cfg.n_heads * cfg.head_dim)
+    return o.to(dtype) @ p["wo"].to(dtype)

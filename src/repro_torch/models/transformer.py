@@ -41,6 +41,10 @@ each layer (each mixer layer of hybrid and xLSTM, as the reference does)
 as the reference's ``jax.checkpoint`` does: ``"full"`` saves nothing of a
 layer, ``"dots"`` saves its matrix products. ``decode_step`` writes the
 caches and recurrent states it is given in place and returns them.
+``paged_decode_step`` and ``prefill_write`` are ``decode_step`` and
+``forward`` over the serving engine's paged pools, which are
+``init_cache``'s leaves with pages as the batch: the attention layout is
+decided here for both.
 
 The reference's layout hints under ``shard_hints`` change no value and
 have no counterpart here (``models/attention.py`` says why); its sharded
@@ -48,7 +52,7 @@ cross-entropy under ``shard_hints`` is ``cross_entropy_sharded``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -58,7 +62,8 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig, is_mla
 from repro_torch.draws import Stream
 from repro_torch.models import mamba2, mla, query_graph, xlstm
-from repro_torch.models.attention import attn_apply, attn_decode, attn_init
+from repro_torch.models.attention import (_project_qkv, attend, attn_apply,
+                                          attn_decode, attn_init)
 from repro_torch.models.common import (cross_entropy, cross_entropy_sharded,
                                        dense_init, dtype_of, rmsnorm)
 from repro_torch.models.mlp import mlp_apply, mlp_init, moe_apply, moe_init
@@ -468,3 +473,106 @@ def decode_step(p: Params, token: torch.Tensor, pos: int,
             x = x + h
 
     return _head(p, x, cfg)[:, 0], cache
+
+
+# ============================================== paged decode and prefill
+def paged_decode_logits(p: Params, pools: Dict[str, torch.Tensor],
+                        table: torch.Tensor, tokens: torch.Tensor,
+                        pos: torch.Tensor, cfg: ModelConfig,
+                        page_size: int) -> torch.Tensor:
+    """``decode_step`` for every slot against paged pools: the logits
+    (S, V), each slot's new K/V (latent) written into its page.
+
+    ``pools``: ``init_cache(cfg, n_pages, page_size)``'s leaves; table:
+    (S, P) int64 page ids; tokens, pos: (S,) int64. Per layer the slots'
+    pages are gathered into the contiguous (S, P*page_size, ...) view that
+    ``decode_step``'s cache holds, so the logits are its bit for bit. K/V:
+    the new token's inserted into the view at ``pos`` by mask, written
+    into its page after the layer; latent: written into its page before
+    the gather. A MoE layer routes all ``S`` slots' tokens together, the
+    idle ones included, as the reference's does: under a capacity that
+    drops tokens a slot's logits can differ from its batch-1
+    ``decode_step``."""
+    _check_ported(cfg)
+    if cfg.family not in _KV_FAMILIES:
+        raise ValueError(f"paged decode supports dense/moe/vlm, "
+                         f"not {cfg.family!r}")
+    latent = is_mla(cfg)
+    S, P = table.shape
+    smax = P * page_size
+    x = p["embed"][tokens][:, None, :].to(dtype_of(cfg.compute_dtype))
+    positions = pos[:, None]                                  # (S,1)
+    pid = table.gather(1, (pos // page_size)[:, None])[:, 0]  # (S,)
+    off = pos % page_size
+    cols = torch.arange(smax, device=pos.device)
+    if latent:
+        valid = cols[None, :] <= pos[:, None]
+    else:
+        upd = (cols[None, :] == pos[:, None])[:, :, None, None]
+        valid = (cols[None, :] <= pos[:, None])[:, None, None, None, :]
+    for i, layer in enumerate(_layers(p, cfg)):
+        with telemetry.inner("layer.attn"):
+            h = rmsnorm(x, layer["norm1"], cfg.norm_eps)
+            if latent:
+                pl = pools["latent"][i]
+                pl[pid, off] = mla.latent(layer["attn"], h, cfg,
+                                          positions)[:, 0].to(pl.dtype)
+                lat = pl[table].reshape(S, smax, pl.shape[-1])
+                x = x + mla.mla_decode(layer["attn"], h, lat, valid, cfg,
+                                       positions)
+            else:
+                pk, pv = pools["k"][i], pools["v"][i]
+                q, k_new, v_new = _project_qkv(layer["attn"], h, cfg,
+                                               positions)
+                vk = pk[table].reshape(S, smax, *pk.shape[2:])
+                vv = pv[table].reshape(S, smax, *pv.shape[2:])
+                vk = torch.where(upd, k_new.to(vk.dtype), vk)
+                vv = torch.where(upd, v_new.to(vv.dtype), vv)
+                x = x + attend(layer["attn"], q, vk, vv, valid, cfg,
+                               x.dtype)
+        with telemetry.inner("layer.ffn"):
+            hn = rmsnorm(x, layer["norm2"], cfg.norm_eps)
+            if "moe" in layer:
+                x = x + moe_apply(layer["moe"], hn, cfg)[0]
+            else:
+                x = x + mlp_apply(layer["mlp"], hn, cfg)
+        if not latent:
+            # inactive slots land in the null page, never read unmasked
+            pk[pid, off] = k_new[:, 0].to(pk.dtype)
+            pv[pid, off] = v_new[:, 0].to(pv.dtype)
+    return _head(p, x, cfg)[:, 0]
+
+
+def paged_decode_step(p: Params, pools: Dict[str, torch.Tensor],
+                      table: torch.Tensor, tokens: torch.Tensor,
+                      pos: torch.Tensor, cfg: ModelConfig, page_size: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``paged_decode_logits`` -> (greedy next tokens (S,), ok): ok is a
+    0-d bool tensor, all logits finite."""
+    logits = paged_decode_logits(p, pools, table, tokens, pos, cfg,
+                                 page_size)
+    return torch.argmax(logits, dim=-1), torch.isfinite(logits).all()
+
+
+def prefill_write(p: Params, pools: Dict[str, torch.Tensor],
+                  tokens: torch.Tensor, true_len: int, pages: torch.Tensor,
+                  cfg: ModelConfig, page_size: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill one request and write its prompt's cache leaves into its
+    pages of the pools of the same names.
+
+    tokens: (1, Sb) int64, the prompt padded with zeros to whole pages;
+    pages: (Sb // page_size,) int64. Returns (first greedy token, ok) as
+    0-d tensors. The padded tail is zeroed, so the pages hold what the
+    contiguous oracle's zero-initialised cache holds, bit for bit. The
+    prompt carries tokens only, so under the vision frontend this fails
+    on the missing patches (``KeyError``), as the reference's does."""
+    logits, _, cache = forward(p, {"tokens": tokens}, cfg,
+                               return_cache=True)
+    last = logits[0, true_len - 1]
+    for name, pool in pools.items():
+        new = cache[name][:, 0]                       # (L, Sb, ...)
+        new[:, true_len:] = 0
+        pool[:, pages] = new.to(pool.dtype).reshape(
+            new.shape[0], pages.shape[0], page_size, *new.shape[2:])
+    return torch.argmax(last, dim=-1), torch.isfinite(last).all()

@@ -5,10 +5,11 @@ Counterpart of ``repro.serve.paged_kv``, for the attention-cache families
 dense, MoE and VLM. The hybrid and xLSTM families keep recurrent state,
 not pages, and the audio family does not decode: they raise the
 reference's ``ValueError``.
-Layout: named pools, torch tensors in the compute dtype on the device the
-cache was made for: ``k`` and ``v``, each ``(n_layers, n_pages,
-page_size, n_kv_heads, head_dim)``, or under an ``MLAConfig`` (latent
-attention, the port's own) the one pool ``latent``, ``(n_layers,
+Layout: named pools, the model's decode cache with pages as its batch
+(``init_cache(cfg, n_pages, page_size)``), in the compute dtype on the
+device the cache was made for: ``k`` and ``v``, each ``(n_layers,
+n_pages, page_size, n_kv_heads, head_dim)``, or under an ``MLAConfig``
+(latent attention, the port's own) the one pool ``latent``, ``(n_layers,
 n_pages, page_size, latent_dim)``. Page 0 is the reserved *null* page:
 page-table slots that a request has not grown into yet point at it, and
 decode steps of inactive scheduler slots write their K/V there. The null
@@ -36,9 +37,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device
-from repro_torch.configs.base import ModelConfig, is_mla
-from repro_torch.models.common import dtype_of
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import init_cache
 
 NULL_PAGE = 0
 
@@ -53,18 +53,9 @@ class PagedKVCache:
         if n_pages < 2:
             raise ValueError("need at least one real page beside the null "
                              "page")
-        dev = resolve_device(device)
-        cdt = dtype_of(cfg.compute_dtype)
-        lead = (cfg.n_layers, n_pages, page_size)
-        self.latent = is_mla(cfg)
-        if self.latent:
-            shapes = {"latent": lead + (cfg.latent_dim,)}
-        else:
-            kv = lead + (cfg.n_kv_heads, cfg.head_dim)
-            shapes = {"k": kv, "v": kv}
-        self.pools: Dict[str, torch.Tensor] = {
-            name: torch.zeros(shape, dtype=cdt, device=dev)
-            for name, shape in shapes.items()}
+        self.pools: Dict[str, torch.Tensor] = init_cache(
+            cfg, n_pages, page_size, device=device)
+        self.latent = "latent" in self.pools
         self.page_size = page_size
         self.n_pages = n_pages
         self.slots = slots

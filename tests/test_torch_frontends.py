@@ -53,10 +53,10 @@ from repro_torch.data import synthetic
 from repro_torch.launch import serve, train
 from repro_torch.models import (decode_step, forward, init_cache,
                                 init_params)
+from repro_torch.models.transformer import paged_decode_logits, prefill_write
 from repro_torch.runtime.serve_loop import _with_headroom, serve_batch
 from repro_torch.runtime.steps import _value_and_grad, make_prefill_step
 from repro_torch.serve import PagedKVCache
-from repro_torch.serve.engine import paged_decode_logits, prefill_write
 
 CPU = "cpu"
 AUDIO, VLM = "hubert-xlarge", "llava-next-mistral-7b"
@@ -290,8 +290,8 @@ def test_vlm_paged_decode_matches_reference():
     for t in range(new):
         pos = torch.full((2,), S0 + t)
         want, full = decode_step(p, tok, S0 + t, full, cfg)
-        got = paged_decode_logits(p, cache.pool_k, cache.pool_v, table,
-                                  tok, pos, cfg, ps)
+        got = paged_decode_logits(p, cache.pools, table, tok, pos, cfg,
+                                  ps)
         assert torch.equal(got, want), t
         jpk, jpv, jnxt, ok = jstep(jp, jpk, jpv, jnp.asarray(cache.table),
                                    jnp.asarray(tok.numpy(), jnp.int32),
@@ -400,8 +400,7 @@ def test_prefill_write_and_audio_cache_fail_as_the_reference():
             jp, jnp.asarray(cache.pool_k.numpy()),
             jnp.asarray(cache.pool_v.numpy()), jnp.asarray(toks, jnp.int32),
             8, jnp.asarray(pages, jnp.int32)),
-        lambda: prefill_write(p, cache.pool_k, cache.pool_v,
-                              torch.from_numpy(toks), 8,
+        lambda: prefill_write(p, cache.pools, torch.from_numpy(toks), 8,
                               torch.from_numpy(pages), cfg, 8))
     assert isinstance(err, KeyError)
     err = _raises_alike(lambda: jinit_cache(jget_tiny(AUDIO), 1, 8),

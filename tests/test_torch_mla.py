@@ -7,9 +7,9 @@ un-renormalised gates and the dense layer 0, the benchmark's layout of the
 published model, the HRM verbs over the latent pool, the engine's run and
 its spans and counters. The reference decompresses every position; the
 port's decode attends the latent with W_UK absorbed into the query. The
-engine's one decode graph (``serve/decode_graph.py``) is held here over
-both caches: the latent pool and, at tiny deepseek-moe-16b, the ``k`` and
-``v`` pools of ``paged_decode_step``.
+engine's one decode graph (``serve/decode_graph.py``) around the one
+``paged_decode_step`` is held here over both caches: the latent pool and,
+at tiny deepseek-moe-16b, the ``k`` and ``v`` pools.
 
 Tolerances, in float32 compute against the float32 reference: logits
 within 1e-4 x max|logit| (the two sum products in other orders, and the
@@ -39,11 +39,10 @@ from repro_torch.models import (decode_step, forward, init_cache,
                                 init_params, mla)
 from repro_torch.models.common import yarn_freqs, yarn_mscale
 from repro_torch.models.mlp import _route, mlp_apply, moe_apply
+from repro_torch.models.transformer import (paged_decode_logits,
+                                            paged_decode_step, prefill_write)
 from repro_torch.serve import OnlineEngine, PagedKVCache, Request
-from repro_torch.serve.engine import (kv_policy, latent_decode_logits,
-                                      latent_decode_step,
-                                      latent_prefill_write,
-                                      paged_decode_step, prefill_write)
+from repro_torch.serve.engine import kv_policy
 from repro_torch.serve.metrics import SLOCounters
 from repro_torch.serve.router import RequestRouter
 
@@ -210,8 +209,8 @@ def test_paged_latent_decode_equals_reference(dtype):
         n_pp = cache.pages_needed(n)
         toks = torch.zeros(1, n_pp * page, dtype=torch.long)
         toks[0, :n] = seqs[slot][:n]
-        first, ok = latent_prefill_write(
-            w, cache.pools["latent"], toks, n, torch.as_tensor(
+        first, ok = prefill_write(
+            w, cache.pools, toks, n, torch.as_tensor(
                 pages[:n_pp], dtype=torch.long), cfg, page)
         assert bool(ok)
     table = cache.device_table()
@@ -219,8 +218,8 @@ def test_paged_latent_decode_equals_reference(dtype):
     for k in range(steps if dtype == "float32" else 2):    # control: 2
         pos = torch.tensor([n + k for n in lens])
         tokens = torch.stack([s[p] for s, p in zip(seqs, pos.tolist())])
-        logits = latent_decode_logits(w, cache.pools["latent"], table,
-                                      tokens, pos, cfg, page)
+        logits = paged_decode_logits(w, cache.pools, table, tokens, pos,
+                                     cfg, page)
         err = max(err, max(_rel(logits[i], refs[i][int(pos[i])])
                            for i in range(3)))
     assert err < LOGIT_TOL if dtype == "float32" else err > 100 * LOGIT_TOL
@@ -395,157 +394,105 @@ def test_spans_and_counters_of_the_latent_decode():
 
 
 # ------------------------------------------------------ the decode graph
-def _decode_inputs(cfg, device, lens=(5, 11, 16), page=4):
-    """A paged latent cache on ``device`` with three prefilled slots, and
-    the weights."""
-    w = bench_mla.make(dict(C, param_dtype=cfg.param_dtype,
-                            compute_dtype=cfg.compute_dtype), 11, device)
-    cache = PagedKVCache(cfg, n_pages=40, page_size=page, slots=3,
-                         max_pages_per_slot=8, device=device)
-    for slot, n in enumerate(lens):
-        pages = cache.alloc(slot, n + 9)
-        n_pp = cache.pages_needed(n)
-        toks = torch.zeros(1, n_pp * page, dtype=torch.long, device=device)
-        toks[0, :n] = _tokens(n, 10 + slot).to(device)
-        latent_prefill_write(w, cache.pools["latent"], toks, n,
-                             torch.as_tensor(pages[:n_pp], device=device),
-                             cfg, page)
-    return w, cache
-
-
-def test_decode_graph_runs_eagerly_on_the_cpu():
-    from repro_torch.serve.decode_graph import DecodeGraph
-    from repro_torch.serve.engine import latent_decode_step
-    w, cache = _decode_inputs(CFG, CPU)
-    pool = cache.pools["latent"]
-    twin = pool.clone()
-    graph = DecodeGraph(latent_decode_step)
-    table = cache.device_table()
-    for k in range(3):
-        pos = torch.tensor([5 + k, 11 + k, 16 + k])
-        tokens = torch.tensor([3 + k, 7, 9])
-        got = graph(w, pool, table, tokens, pos, CFG, 4)
-        want = latent_decode_step(w, twin, table, tokens, pos, CFG, 4)
-        assert torch.equal(got[0], want[0]) and bool(got[1])
-    assert torch.equal(pool, twin) and graph._graph is None
-
-
-def test_decode_graph_key_follows_the_leaves_by_address():
-    """A leaf written in place keeps the key (the graph reads it there); a
-    leaf or a pool replaced by another tensor makes a new one."""
-    from repro_torch.serve.decode_graph import key_of
-    w, cache = _decode_inputs(CFG, CPU)
-    pool, table = cache.pools["latent"], cache.device_table()
-    key = key_of(w, pool, table)
-    w["blocks"]["attn"]["wkv_b"].mul_(1.5)
-    assert key_of(w, pool, table) == key
-    w["blocks"]["attn"]["wkv_b"] = w["blocks"]["attn"]["wkv_b"].clone()
-    assert key_of(w, pool, table) != key
-    key = key_of(w, pool, table)
-    assert key_of(w, pool.clone(), table) != key
-
-
-@pytest.mark.card
-def test_decode_graph_replays_equal_the_eager_step_on_the_card():
-    """Eager steps against the graph's over the same inputs, bit for bit:
-    its warm-up, capture and replays; a parameter leaf replaced (a
-    scrub's rebuilt leaf: captured again); a leaf written in place (read
-    by the replay as written); the pool replaced (captured again)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    from repro_torch.serve.decode_graph import DecodeGraph
-    from repro_torch.serve.engine import latent_decode_step
-    dev = torch.device("cuda")
-    cfg = CFG.replace(compute_dtype="bfloat16", param_dtype="bfloat16")
-    w, cache = _decode_inputs(cfg, dev)
-    pool, twin = cache.pools["latent"], cache.pools["latent"].clone()
-    graph = DecodeGraph(latent_decode_step)
-    table = cache.device_table()
-    with telemetry.recording():
-        for k in range(8):
-            if k == 4:                      # a scrub's rebuilt leaf
-                w["blocks"]["attn"]["wkv_b"] = \
-                    w["blocks"]["attn"]["wkv_b"] * 1.5
-            if k == 5:                      # a word struck in place
-                w["blocks"]["attn"]["wkv_a"].view(-1)[:64].mul_(-3)
-            if k == 6:                      # an adopted pool
-                pool, twin = pool.clone(), twin.clone()
-            pos = torch.tensor([5 + k, 11 + k, 16 + k], device=dev)
-            tokens = torch.tensor([3 + k, 7, 9], device=dev)
-            got = graph(w, pool, table, tokens, pos, cfg, 4)
-            want = latent_decode_step(w, twin, table, tokens, pos, cfg, 4)
-            assert torch.equal(got[0], want[0]), k
-            assert torch.equal(pool[:, 1:], twin[:, 1:]), k   # not page 0
-    c = telemetry.summary()["counters"]
-    assert c["decode_replays"] == 7             # every step but the first
-    assert c["decode_captures"] == 3            # steps 1, 4 and 6
-
-
-# ----------------------------------- the decode graph over the k/v pools
 MHA = get_tiny("deepseek-moe-16b")
+# each layout's case: the configuration, the slots' prefilled lengths (of
+# three slots; a third left out is idle, its table row all null page),
+# and the attention leaves a scrub rebuilds and a strike hits
+GRAPH_CASES = {"kv": (MHA, (5, 11), "wq", "wk"),
+               "latent": (CFG, (5, 11, 16), "wkv_b", "wkv_a")}
 
 
-def _mha_inputs(cfg, device, lens=(5, 11), page=4):
-    """A paged k/v cache on ``device`` with two prefilled slots and the
-    third idle (its table row all null page), and the weights."""
-    w = init_params(cfg, seed=3, device=device)
+def _decode_inputs(kind: str, cfg, device, page=4):
+    """A paged cache of ``GRAPH_CASES[kind]`` on ``device`` with its slots
+    prefilled, and the weights: the benchmark's for the latent cache,
+    ``init_params``' for the k/v one."""
+    lens = GRAPH_CASES[kind][1]
+    if kind == "latent":
+        w = bench_mla.make(dict(C, param_dtype=cfg.param_dtype,
+                                compute_dtype=cfg.compute_dtype), 11, device)
+
+        def prompt(slot, n):
+            return _tokens(n, 10 + slot)
+    else:
+        w = init_params(cfg, seed=3, device=device)
+        rng = np.random.default_rng(20)
+
+        def prompt(slot, n):
+            return torch.as_tensor(rng.integers(0, cfg.vocab_size, n))
     cache = PagedKVCache(cfg, n_pages=40, page_size=page, slots=3,
                          max_pages_per_slot=8, device=device)
-    rng = np.random.default_rng(20)
     for slot, n in enumerate(lens):
         pages = cache.alloc(slot, n + 9)
         n_pp = cache.pages_needed(n)
         toks = torch.zeros(1, n_pp * page, dtype=torch.long, device=device)
-        toks[0, :n] = torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
-                                      device=device)
-        prefill_write(w, cache.pool_k, cache.pool_v, toks, n,
+        toks[0, :n] = prompt(slot, n).to(device)
+        prefill_write(w, cache.pools, toks, n,
                       torch.as_tensor(pages[:n_pp], device=device), cfg,
                       page)
     return w, cache
 
 
-def _mha_step_inputs(k: int, device):
-    """Step ``k``'s tokens and positions: two held slots and the idle one
-    (token 0 at position 0, into the null page)."""
-    return (torch.tensor([3 + k, 7, 0], device=device),
-            torch.tensor([5 + k, 11 + k, 0], device=device))
+def _step_inputs(kind: str, k: int, device):
+    """Step ``k``'s tokens and positions: each held slot one position on,
+    an idle slot token 0 at position 0 (into the null page)."""
+    lens = GRAPH_CASES[kind][1]
+    idle = [0] * (3 - len(lens))
+    return (torch.tensor([3 + k, 7, 9][:len(lens)] + idle, device=device),
+            torch.tensor([n + k for n in lens] + idle, device=device))
 
 
-def test_mha_decode_graph_runs_eagerly_on_the_cpu():
+@pytest.mark.parametrize("kind", GRAPH_CASES)
+def test_decode_graph_runs_eagerly_on_the_cpu(kind):
     from repro_torch.serve.decode_graph import DecodeGraph
-    w, cache = _mha_inputs(MHA, CPU)
-    pk, pv = cache.pool_k, cache.pool_v
-    tk, tv = pk.clone(), pv.clone()
+    cfg = GRAPH_CASES[kind][0]
+    w, cache = _decode_inputs(kind, cfg, CPU)
+    pools = cache.pools
+    twins = {name: pool.clone() for name, pool in pools.items()}
     graph = DecodeGraph(paged_decode_step)
     table = cache.device_table()
     for k in range(3):
-        tokens, pos = _mha_step_inputs(k, CPU)
-        got = graph(w, pk, pv, table, tokens, pos, MHA, 4)
-        want = paged_decode_step(w, tk, tv, table, tokens, pos, MHA, 4)
+        tokens, pos = _step_inputs(kind, k, CPU)
+        got = graph(w, pools, table, tokens, pos, cfg, 4)
+        want = paged_decode_step(w, twins, table, tokens, pos, cfg, 4)
         assert torch.equal(got[0], want[0]) and bool(got[1])
-    assert torch.equal(pk, tk) and torch.equal(pv, tv)
+    assert all(torch.equal(pools[name], twins[name]) for name in pools)
     assert graph._graph is None
 
 
-def test_decode_graph_key_over_two_pools():
-    """A pool written in place keeps the key; the V pool alone replaced,
-    or a leaf replaced, makes a new one."""
+@pytest.mark.parametrize("kind", GRAPH_CASES)
+def test_decode_graph_key_follows_the_leaves_by_address(kind):
+    """A leaf or a pool written in place keeps the key (the graph reads it
+    there); a leaf or any one pool replaced by another tensor makes a new
+    one."""
     from repro_torch.serve.decode_graph import key_of
-    w, cache = _mha_inputs(MHA, CPU)
-    pk, pv, table = cache.pool_k, cache.pool_v, cache.device_table()
-    key = key_of(w, pk, pv, table)
-    pk[:, 1:].mul_(-1)
-    assert key_of(w, pk, pv, table) == key
-    assert key_of(w, pk, pv.clone(), table) != key
-    w["blocks"]["attn"]["wq"] = w["blocks"]["attn"]["wq"].clone()
-    assert key_of(w, pk, pv, table) != key
+    cfg, _, rebuilt, _ = GRAPH_CASES[kind]
+    w, cache = _decode_inputs(kind, cfg, CPU)
+    pools, table = cache.pools, cache.device_table()
+    attn = w["blocks"]["attn"]
+    key = key_of(w, pools, table)
+    attn[rebuilt].mul_(1.5)
+    for pool in pools.values():
+        pool[:, 1:].mul_(-1)
+    assert key_of(w, pools, table) == key
+    for name, pool in pools.items():
+        assert key_of(w, dict(pools, **{name: pool.clone()}), table) != key
+    attn[rebuilt] = attn[rebuilt].clone()
+    assert key_of(w, pools, table) != key
 
 
-@pytest.mark.parametrize("cfg,step", [(MHA, paged_decode_step),
-                                      (CFG, latent_decode_step)],
+@pytest.mark.parametrize("cfg,name", [(MHA, "paged_decode_step"),
+                                      (CFG, "latent_decode_step")],
                          ids=["kv", "latent"])
-def test_engine_builds_one_decode_graph_around_its_cache_s_step(cfg, step):
+def test_engine_builds_one_decode_graph_around_its_cache_s_step(
+        cfg, name, monkeypatch):
+    """The engine wraps the step it finds under its layout's name, the one
+    the benchmark's fault plants patch."""
+    from repro_torch.serve import engine
     from repro_torch.serve.decode_graph import DecodeGraph
+
+    def step(*a):
+        return paged_decode_step(*a)
+    monkeypatch.setattr(engine, name, step)
     w = init_params(cfg, seed=0, device=CPU) if cfg is MHA else _weights()
     eng = OnlineEngine(cfg, w, slots=2, page_size=4, max_prompt_len=8,
                        max_new_cap=4)
@@ -554,36 +501,42 @@ def test_engine_builds_one_decode_graph_around_its_cache_s_step(cfg, step):
 
 
 @pytest.mark.card
-def test_mha_decode_graph_replays_equal_the_eager_step_on_the_card():
+@pytest.mark.parametrize("kind", GRAPH_CASES)
+def test_decode_graph_replays_equal_the_eager_step_on_the_card(kind):
     """``paged_decode_step`` eagerly against the graph's over the same
-    inputs, tokens and both pools bit for bit (the null page too: one
-    idle slot writes it): the warm-up, capture and replays; a parameter
-    leaf replaced (captured again); a word struck in place (read by the
-    replay as struck); the K pool adopted alone (captured again)."""
+    inputs, in bfloat16, tokens and every pool bit for bit (the null page
+    too: an idle slot writes it): the warm-up, capture and replays; a
+    parameter leaf replaced (a scrub's rebuilt leaf: captured again); a
+    word struck in place (read by the replay as struck); one pool adopted
+    alone (captured again)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.serve.decode_graph import DecodeGraph
     dev = torch.device("cuda")
-    cfg = MHA.replace(compute_dtype="bfloat16", param_dtype="bfloat16")
-    w, cache = _mha_inputs(cfg, dev)
-    pk, pv = cache.pool_k, cache.pool_v
-    tk, tv = pk.clone(), pv.clone()
+    cfg, _, rebuilt, struck = GRAPH_CASES[kind]
+    cfg = cfg.replace(compute_dtype="bfloat16", param_dtype="bfloat16")
+    w, cache = _decode_inputs(kind, cfg, dev)
+    pools = dict(cache.pools)
+    twins = {name: pool.clone() for name, pool in pools.items()}
     graph = DecodeGraph(paged_decode_step)
     table = cache.device_table()
+    attn = w["blocks"]["attn"]
     with telemetry.recording():
         for k in range(8):
             if k == 4:                      # a scrub's rebuilt leaf
-                w["blocks"]["attn"]["wq"] = w["blocks"]["attn"]["wq"] * 1.5
+                attn[rebuilt] = attn[rebuilt] * 1.5
             if k == 5:                      # a word struck in place
-                w["blocks"]["attn"]["wk"].view(-1)[:64].mul_(-3)
-            if k == 6:                      # an adopted K pool
-                pk, tk = pk.clone(), tk.clone()
-            tokens, pos = _mha_step_inputs(k, dev)
-            got = graph(w, pk, pv, table, tokens, pos, cfg, 4)
-            want = paged_decode_step(w, tk, tv, table, tokens, pos, cfg, 4)
+                attn[struck].view(-1)[:64].mul_(-3)
+            if k == 6:                      # the first pool adopted alone
+                name = next(iter(pools))
+                pools[name], twins[name] = (pools[name].clone(),
+                                            twins[name].clone())
+            tokens, pos = _step_inputs(kind, k, dev)
+            got = graph(w, pools, table, tokens, pos, cfg, 4)
+            want = paged_decode_step(w, twins, table, tokens, pos, cfg, 4)
             assert torch.equal(got[0], want[0]), k
             assert bool(got[1]) == bool(want[1]), k
-            assert torch.equal(pk, tk) and torch.equal(pv, tv), k
+            assert all(torch.equal(pools[n], twins[n]) for n in pools), k
     c = telemetry.summary()["counters"]
     assert c["decode_replays"] == 7             # every step but the first
     assert c["decode_captures"] == 3            # steps 1, 4 and 6

@@ -52,11 +52,11 @@ from repro_torch.core.policy import classify_path
 from repro_torch.launch import serve, serve_online
 from repro_torch.models import (decode_step, forward, init_cache,
                                 init_params, mlp)
+from repro_torch.models.transformer import paged_decode_logits, prefill_write
 from repro_torch.runtime.serve_loop import serve_batch
 from repro_torch.runtime.steps import _value_and_grad
 from repro_torch.serve import (OnlineEngine, PagedKVCache, TrafficConfig,
                                generate_trace)
-from repro_torch.serve.engine import paged_decode_logits, prefill_write
 
 CPU = "cpu"
 ARCHS = ("granite-moe-3b-a800m", "deepseek-moe-16b")
@@ -315,7 +315,7 @@ def test_paged_decode_equals_contiguous_decode():
     tok = []
     for i in range(b):
         pages = torch.from_numpy(cache.alloc(i, s0 + new).astype(np.int64))
-        first, ok = prefill_write(params, cache.pool_k, cache.pool_v,
+        first, ok = prefill_write(params, cache.pools,
                                   prompts[i:i + 1], s0, pages[:1], cfg, ps)
         logits, _, c = forward(params, {"tokens": prompts[i:i + 1]}, cfg,
                                return_cache=True)
@@ -327,8 +327,8 @@ def test_paged_decode_equals_contiguous_decode():
     table = cache.device_table()
     for t in range(new):
         want, full = decode_step(params, tok, s0 + t, full, cfg)
-        got = paged_decode_logits(params, cache.pool_k, cache.pool_v, table,
-                                  tok, torch.full((b,), s0 + t), cfg, ps)
+        got = paged_decode_logits(params, cache.pools, table, tok,
+                                  torch.full((b,), s0 + t), cfg, ps)
         assert torch.equal(got, want), t
         tok = torch.argmax(want, dim=-1)
 

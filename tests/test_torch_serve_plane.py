@@ -44,11 +44,11 @@ from repro_torch.core import (DESIGN_POINTS, InjectionPlan, MemoryDomain,
 from repro_torch.core.trace import ErrorTrace
 from repro_torch.launch import serve_online
 from repro_torch.models import decode_step, forward, init_cache, init_params
+from repro_torch.models.transformer import paged_decode_logits, prefill_write
 from repro_torch.runtime.serve_loop import serve_batch
 from repro_torch.serve import (NULL_PAGE, OnlineEngine, PagedKVCache,
                                Request, RequestRouter, SLOCounters,
                                TrafficConfig, generate_trace, incorrect_rate)
-from repro_torch.serve.engine import paged_decode_logits, prefill_write
 
 CPU = "cpu"
 CFG = get_tiny("llama3-8b")
@@ -205,7 +205,7 @@ def test_paged_decode_bit_identical_to_contiguous_decode(params):
     firsts, tok = [], []
     for i in range(b):
         pages = torch.from_numpy(cache.alloc(i, s0 + new).astype(np.int64))
-        first, ok = prefill_write(params, cache.pool_k, cache.pool_v,
+        first, ok = prefill_write(params, cache.pools,
                                   prompts[i:i + 1], s0, pages[:1], CFG, ps)
         assert bool(ok)
         firsts.append(int(first))
@@ -219,8 +219,8 @@ def test_paged_decode_bit_identical_to_contiguous_decode(params):
     table = cache.device_table()
     for t in range(new):
         want, full = decode_step(params, tok, s0 + t, full, CFG)
-        got = paged_decode_logits(params, cache.pool_k, cache.pool_v, table,
-                                  tok, torch.full((b,), s0 + t), CFG, ps)
+        got = paged_decode_logits(params, cache.pools, table, tok,
+                                  torch.full((b,), s0 + t), CFG, ps)
         assert torch.equal(got, want), t
         for i in range(b):
             k, v = cache.contiguous_view(i, s0 + t + 1)

@@ -49,10 +49,10 @@ from repro_torch.core.policy import classify_path
 from repro_torch.launch import serve
 from repro_torch.models import (decode_step, forward, gla, init_cache,
                                 init_params, mamba2, xlstm)
+from repro_torch.models.transformer import paged_decode_logits
 from repro_torch.runtime.serve_loop import serve_batch
 from repro_torch.runtime.steps import _value_and_grad
 from repro_torch.serve import OnlineEngine, PagedKVCache
-from repro_torch.serve.engine import paged_decode_logits
 
 CPU = "cpu"
 ARCHS = ("zamba2-2.7b", "xlstm-350m")
@@ -384,7 +384,7 @@ def test_paged_serving_raises_the_reference_error(arch):
                      max_new_cap=8)
     z = torch.zeros(1, dtype=torch.int64)
     with pytest.raises(ValueError, match="dense/moe/vlm"):
-        paged_decode_logits(p, None, None, z[:, None], z, z, cfg, 8)
+        paged_decode_logits(p, {}, z[:, None], z, z, cfg, 8)
 
 
 def test_campaign_outcomes_equal_reference():
