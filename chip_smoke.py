@@ -31,7 +31,11 @@ Needs one CUDA card (an H100: the kernels build for ``sm_90a``) and
    rate), the popcount limit of this implementation (its popcounts over
    the popcount rate) and its plain version's time; the bit-flip kernel,
    whose call time is host time, also by its device time alone (launches
-   replayed from a CUDA graph);
+   replayed from a CUDA graph); then the paged decode attention kernel
+   (``kernels/paged_attn.py``, no Pallas site) at the chat cell's shapes
+   and its mix's positions: held against its plain version computed in
+   float32, its device time from launches replayed in a CUDA graph, its
+   byte bound at those positions and the plain version's time;
 5. measures the per-tier outcome rates (``core.eccmeasure``) of PARITY_R,
    SECDED, DECTED, BURST and MIRROR through the kernels, holds them equal
    to the same measurement on the CPU (the plain versions), and prints the
@@ -367,6 +371,18 @@ SERVE_POLICIES = (None, "typical_server", "detect_recover",
 # examples/serve_kv.py's error rate and seed, its scrub interval scaled to
 # the longer run
 SERVE_SCRUB_INTERVAL, SERVE_ERROR_RATE, SERVE_SEED = 16, 0.5, 9
+# phase 4: the paged decode attention at the chat cell's shapes
+# (hrmbench deepseek-moe-16b.chat: 64 slots of 96 16-token pages, 16 KV
+# heads of 128, one query head each, bfloat16), half the slots held
+# (decode_slot_use.chat ~50 %) at the chat mix's positions: a prompt of
+# 128/256/512/1024 tokens (0.4/0.3/0.2/0.1) and part of an answer of
+# 64/128/256/512 (the same weights)
+PA_SLOTS, PA_PAGES, PA_PAGE, PA_KV_HEADS, PA_GROUP, PA_HEAD = \
+    64, 96, 16, 16, 1, 128
+PA_HELD = 32
+PA_LENS, PA_WEIGHTS = (128, 256, 512, 1024), (0.4, 0.3, 0.2, 0.1)
+PA_NEW = (64, 128, 256, 512)
+PA_GRAPH_LAUNCHES = 20
 SERVE_KERNELS = {"secded_encode", "secded_scrub", "parity_encode",
                  "parity_check", "bitflip"}
 LOGIT_CHECK_TOKENS = 16
@@ -1352,6 +1368,76 @@ def time_kernels(state, chunk_rows: int = 1 << 16):
               f"(popcounts={popc}) of_bound={bytes_ms / ms:.3f} "
               f"of_ops_bound={ops_ms / ms:.3f}" + extra)
     return out
+
+
+def time_paged_attn(dev):
+    """The paged decode attention kernel at the chat cell's shapes and
+    positions (PA_*): its output against the plain version computed in
+    float32 over the same values, within one rounding of o to bfloat16
+    plus 1e-5 x max|o| (float32 sums in another order); its device time,
+    launches replayed from a CUDA graph as the decode graph replays them;
+    its byte bound (the K/V rows of positions 0..pos of every slot, their
+    page ids, q, pos and o, each once); the plain version's time in
+    bfloat16 (the gathered views and einsums the paged decode ran
+    before)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attn import (paged_attn_decode,
+                                                paged_attn_decode_plain)
+    S, P, ps, K, G, dh = (PA_SLOTS, PA_PAGES, PA_PAGE, PA_KV_HEADS,
+                          PA_GROUP, PA_HEAD)
+    rng = np.random.default_rng(SEED)
+    pos = np.zeros(S, np.int64)
+    held = rng.choice(S, PA_HELD, replace=False)
+    pos[held] = (rng.choice(PA_LENS, PA_HELD, p=PA_WEIGHTS)
+                 + rng.integers(0, rng.choice(PA_NEW, PA_HELD,
+                                              p=PA_WEIGHTS)))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_pages = S * P + 1                  # page 0 the null page
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    q = draw(S, K, G, dh)
+    pk, pv = draw(n_pages, ps, K, dh), draw(n_pages, ps, K, dh)
+    table = (torch.randperm(n_pages - 1, generator=gen, device=dev)[:S * P]
+             + 1).reshape(S, P)
+    pos_t = torch.as_tensor(pos, device=dev)
+    launched = _build.LAUNCHES["paged_attn_decode"]
+    got = paged_attn_decode(q, pk, pv, table, pos_t, ps).float()
+    want = paged_attn_decode_plain(q.float(), pk.float(), pv.float(), table,
+                                   pos_t, ps)
+    err = (got - want).abs()
+    top = float(want.abs().max())
+    limit = torch.finfo(torch.bfloat16).eps * want.abs() + 1e-5 * top
+    over, outputs = int((err > limit).sum()), got.numel()
+    del want
+    ms = _graph_ms(lambda: paged_attn_decode(q, pk, pv, table, pos_t, ps),
+                   PA_GRAPH_LAUNCHES)
+    plain_ms = _cuda_ms(lambda: paged_attn_decode_plain(q, pk, pv, table,
+                                                        pos_t, ps), reps=3)
+    read = int((pos + 1).sum())
+    pages = int(((pos + ps) // ps).sum())
+    nbytes = (read * K * dh * 2 * 2 + pages * 8 + 2 * q.numel() * 2
+              + S * 8)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    launches = _build.LAUNCHES["paged_attn_decode"] - launched
+    print(f"time paged_attn_decode: slots={S} held={PA_HELD} pages/slot={P} "
+          f"page={ps} kv_heads={K} G={G} dh={dh} positions_read={read} "
+          f"ms={ms:.5f} (CUDA graph of {PA_GRAPH_LAUNCHES} launches) "
+          f"bound_ms={bound_ms:.5f} (bytes={nbytes}) of_bound="
+          f"{bound_ms / ms:.3f} plain_ms={plain_ms:.3f} launches="
+          f"{launches} max_abs_err={float(err.max()):.3g} (max|o| {top:.3g}) "
+          f"mismatches={over} of {outputs} outputs")
+    if over:
+        raise AssertionError(f"paged_attn_decode: {over} of {outputs} "
+                             f"outputs beyond the float32 plain version's "
+                             f"rounding (max |diff| {float(err.max())})")
+    del pk, pv
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "bytes": nbytes, "positions": read,
+            "max_abs_err": float(err.max()), "mismatches": over,
+            "outputs": outputs, "launches": launches}
 
 
 def measured_fig5(dev):
@@ -2753,8 +2839,8 @@ def online_card_vs_cpu(dev, by_path: dict) -> None:
             runs[where, storm] = eng.run(trace, storm_errors=storm)
             if where == "card" and storm:
                 _path_launches("serve_online_tiny", _needed_kernels(
-                    eng.param_domain) | _needed_kernels(eng.kv_domain),
-                    by_path)
+                    eng.param_domain) | _needed_kernels(eng.kv_domain)
+                    | {"paged_attn_decode"}, by_path)
     (card0, ctok0), (cpu0, ptok0) = runs["card", 0], runs["cpu", 0]
     (card, ctok), (cpu, ptok) = (runs["card", ONLINE_STORM],
                                  runs["cpu", ONLINE_STORM])
@@ -2849,7 +2935,7 @@ def online_full_width(params, dev, by_path: dict) -> dict:
         for storm in (0, ONLINE_STORM):
             eng = _online_engine(cfg, params, tc, policy, tier, peer)
             need = _needed_kernels(eng.param_domain) | \
-                _needed_kernels(eng.kv_domain)
+                _needed_kernels(eng.kv_domain) | {"paged_attn_decode"}
             if not storm:
                 need.discard("bitflip")
             checks = []
@@ -2993,7 +3079,8 @@ def online_wall(params, dev, by_path: dict, profiled) -> None:
     tc, trace = _online_traffic(cfg)
     eng = _online_engine(cfg, params, tc, "detect_recover", "parity_r",
                          clock="wall")
-    need = _needed_kernels(eng.param_domain) | _needed_kernels(eng.kv_domain)
+    need = _needed_kernels(eng.param_domain) | \
+        _needed_kernels(eng.kv_domain) | {"paged_attn_decode"}
     _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
@@ -4215,7 +4302,7 @@ def families_online(dev, by_path: dict) -> None:
     for storm in (0, ONLINE_STORM):
         eng = _online_engine(cfg, params, tc, "detect_recover", "parity_r")
         need = _needed_kernels(eng.param_domain) | \
-            _needed_kernels(eng.kv_domain)
+            _needed_kernels(eng.kv_domain) | {"paged_attn_decode"}
         if not storm:
             need.discard("bitflip")
             pool = eng.cache.pool_k
@@ -4662,13 +4749,15 @@ def _vlm_decode_check(cfg, params, batch, name: str = "frontends vlm",
     return diff, float(ref.abs().max())
 
 
-def _vlm_paged_check(cfg, params, batch) -> None:
+def _vlm_paged_check(cfg, params, batch, by_path: dict) -> None:
     """VLM_PAGED_STEPS ``paged_decode_logits`` steps on a
     ``PagedKVCache(vlm)`` whose pages hold the patch-prefixed prefill's
     K/V (``prefill_write`` takes no patches, in the reference neither),
     each slot held against ``decode_step`` (batch 1) on its gathered pages
     before the step: max |diff| and greedy tokens equal where the top-2
-    margin exceeds it."""
+    margin exceeds it. The steps' launches are the path
+    ``frontends_vlm_paged``, which must launch the paged attention."""
+    from repro_torch.kernels import _build
     from repro_torch.serve import PagedKVCache
     B = batch["tokens"].shape[0]
     token, cache, S0, _ = _vlm_prefill(cfg, params, batch, 0)
@@ -4689,6 +4778,7 @@ def _vlm_paged_check(cfg, params, batch) -> None:
     _, checked = _paged_logit_check(cfg, checks)
     table = kv.device_table()
     pos = torch.full((B,), S0, dtype=torch.int64, device=token.device)
+    _build.reset_launches()
     for _ in range(VLM_PAGED_STEPS):
         logits = checked(params, kv.pools, table, token, pos, cfg,
                          VLM_PAGE)
@@ -4703,6 +4793,7 @@ def _vlm_paged_check(cfg, params, batch) -> None:
           f"batch 1 on each slot's gathered pages): max|diff|={diff:.4g} "
           f"max|logit|={top:.4g} tokens equal where the top-2 margin "
           f"exceeds the diff: {agree}")
+    _path_launches("frontends_vlm_paged", {"paged_attn_decode"}, by_path)
     if not agree:
         raise AssertionError("frontends vlm: paged and contiguous decode "
                              "disagree on a clear token")
@@ -4766,7 +4857,7 @@ def frontends_vlm(dev, by_path: dict) -> None:
               f"{rep.scrub_detected}{expect} sidecar_overhead="
               f"{rep.sidecar_overhead:.4f} peak_bytes={peak}")
     _path_launches("frontends_vlm_serve", SERVE_KERNELS, by_path)
-    _vlm_paged_check(cfg, params, batch)
+    _vlm_paged_check(cfg, params, batch, by_path)
 
 
 def frontends_campaign(dev, by_path: dict) -> None:
@@ -5677,6 +5768,7 @@ def main() -> int:
     full = phase("3b_main_shapes", check_main_shapes, state, dev)
     phase("3b_profile", profile_scrub, state)
     times = phase("4_times", time_kernels, state)
+    paged = phase("4_paged_attn", time_paged_attn, dev)
     phase("5_rates_fig5", measured_fig5, dev)
     checks.update(phase("6_graph_check", check_graph_kernels, dev))
     graph = phase("6_graph_build", graph_build, dev)
@@ -5720,7 +5812,19 @@ def main() -> int:
          "bound_by": times[name]["bound_by"],
          "ops_bound_ms": times[name]["ops_bound_ms"],
          "library_ms": times[name].get("library_ms")}
-        for name, (src, rep) in KERNELS.items()]}))
+        for name, (src, rep) in KERNELS.items()] + [
+        {"name": "paged_attn_decode", "route": "cuda",
+         "source": CSRC + "paged_attn.cu", "replaces": None,
+         "launches": sum(n.get("paged_attn_decode", 0)
+                         for n in by_path.values()),
+         "launches_by_path": {p: n.get("paged_attn_decode", 0)
+                              for p, n in by_path.items()},
+         "max_abs_err": paged["max_abs_err"],
+         "mismatches": paged["mismatches"],
+         "outputs_checked": paged["outputs"],
+         "positions_read": paged["positions"], "ms": paged["ms"],
+         "plain_ms": paged["plain_ms"], "bound_ms": paged["bound_ms"],
+         "bound_by": "bytes", "ops_bound_ms": None, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -29,7 +29,7 @@ from repro_torch.kernels import hsiao
 
 CSRC = Path(__file__).with_name("csrc")
 SOURCES = ("secded.cu", "parity.cu", "bitflip.cu", "bch.cu", "burst.cu",
-           "segsum.cu")
+           "segsum.cu", "paged_attn.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,6 +55,8 @@ _SIGNATURES = {
     "hrm_segsum_push_blocked": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                                 _I64, _I64, _P),
     "hrm_frontier_update": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
+    # paged decode attention: nine pointers, then sizes and the dtype's code
+    "hrm_paged_attn_decode": (_P,) * 9 + (_I64,) * 8 + (_P,),
 }
 
 
@@ -68,7 +70,8 @@ class KernelError(RuntimeError):
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "secded_encode", "secded_scrub", "parity_encode", "parity_check",
     "bitflip", "bch_encode", "bch_scrub", "burst_encode", "burst_scrub",
-    "segsum_push", "segsum_push_blocked", "frontier_update")}
+    "segsum_push", "segsum_push_blocked", "frontier_update",
+    "paged_attn_decode")}
 
 
 def reset_launches() -> None:

@@ -62,7 +62,8 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig, is_mla
 from repro_torch.draws import Stream
 from repro_torch.models import mamba2, mla, query_graph, xlstm
-from repro_torch.models.attention import (_project_qkv, attend, attn_apply,
+from repro_torch.kernels.paged_attn import paged_attn_decode
+from repro_torch.models.attention import (_project_qkv, attn_apply,
                                           attn_decode, attn_init)
 from repro_torch.models.common import (cross_entropy, cross_entropy_sharded,
                                        dense_init, dtype_of, rmsnorm)
@@ -484,15 +485,17 @@ def paged_decode_logits(p: Params, pools: Dict[str, torch.Tensor],
     (S, V), each slot's new K/V (latent) written into its page.
 
     ``pools``: ``init_cache(cfg, n_pages, page_size)``'s leaves; table:
-    (S, P) int64 page ids; tokens, pos: (S,) int64. Per layer the slots'
-    pages are gathered into the contiguous (S, P*page_size, ...) view that
-    ``decode_step``'s cache holds, so the logits are its bit for bit. K/V:
-    the new token's inserted into the view at ``pos`` by mask, written
-    into its page after the layer; latent: written into its page before
-    the gather. A MoE layer routes all ``S`` slots' tokens together, the
-    idle ones included, as the reference's does: under a capacity that
-    drops tokens a slot's logits can differ from its batch-1
-    ``decode_step``."""
+    (S, P) int64 page ids; tokens, pos: (S,) int64. Per layer each slot's
+    new K/V (latent) is written into its page first. K/V: the attention
+    reads the pools in place through the table up to each slot's ``pos``
+    (``kernels.paged_attn``; on CPU tensors its plain version, over the
+    gathered view); latent: the slots' pages are gathered into the
+    contiguous (S, P*page_size, ...) view. On the CPU the logits are
+    ``decode_step``'s bit for bit. Inactive slots (token 0 at pos 0) all
+    write the null page at offset 0, which no slot reads unmasked. A MoE
+    layer routes all ``S`` slots' tokens together, the idle ones
+    included, as the reference's does: under a capacity that drops tokens
+    a slot's logits can differ from its batch-1 ``decode_step``."""
     _check_ported(cfg)
     if cfg.family not in _KV_FAMILIES:
         raise ValueError(f"paged decode supports dense/moe/vlm, "
@@ -504,12 +507,9 @@ def paged_decode_logits(p: Params, pools: Dict[str, torch.Tensor],
     positions = pos[:, None]                                  # (S,1)
     pid = table.gather(1, (pos // page_size)[:, None])[:, 0]  # (S,)
     off = pos % page_size
-    cols = torch.arange(smax, device=pos.device)
     if latent:
+        cols = torch.arange(smax, device=pos.device)
         valid = cols[None, :] <= pos[:, None]
-    else:
-        upd = (cols[None, :] == pos[:, None])[:, :, None, None]
-        valid = (cols[None, :] <= pos[:, None])[:, None, None, None, :]
     for i, layer in enumerate(_layers(p, cfg)):
         with telemetry.inner("layer.attn"):
             h = rmsnorm(x, layer["norm1"], cfg.norm_eps)
@@ -524,22 +524,18 @@ def paged_decode_logits(p: Params, pools: Dict[str, torch.Tensor],
                 pk, pv = pools["k"][i], pools["v"][i]
                 q, k_new, v_new = _project_qkv(layer["attn"], h, cfg,
                                                positions)
-                vk = pk[table].reshape(S, smax, *pk.shape[2:])
-                vv = pv[table].reshape(S, smax, *pv.shape[2:])
-                vk = torch.where(upd, k_new.to(vk.dtype), vk)
-                vv = torch.where(upd, v_new.to(vv.dtype), vv)
-                x = x + attend(layer["attn"], q, vk, vv, valid, cfg,
-                               x.dtype)
+                pk[pid, off] = k_new[:, 0].to(pk.dtype)
+                pv[pid, off] = v_new[:, 0].to(pv.dtype)
+                o = paged_attn_decode(q[:, 0], pk, pv, table, pos,
+                                      page_size)
+                x = x + o[:, None].to(x.dtype) \
+                    @ layer["attn"]["wo"].to(x.dtype)
         with telemetry.inner("layer.ffn"):
             hn = rmsnorm(x, layer["norm2"], cfg.norm_eps)
             if "moe" in layer:
                 x = x + moe_apply(layer["moe"], hn, cfg)[0]
             else:
                 x = x + mlp_apply(layer["mlp"], hn, cfg)
-        if not latent:
-            # inactive slots land in the null page, never read unmasked
-            pk[pid, off] = k_new[:, 0].to(pk.dtype)
-            pv[pid, off] = v_new[:, 0].to(pv.dtype)
     return _head(p, x, cfg)[:, 0]
 
 

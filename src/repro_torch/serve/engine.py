@@ -55,8 +55,11 @@ request's wait from the poll that routed it to its admission an
 ``engine.queued`` interval. A latent decode step counts the positions
 its slots attend (``mla_positions_attended``: Σ pos + 1 over the slots
 a request holds) and those it gathers (``mla_positions_gathered``: every
-slot's every page). They record only under ``torch.profiler`` or
-``telemetry.recording()``, and never wait for the device.
+slot's every page); a K/V decode step the positions its attention reads
+(``attn_positions_read``: on the card Σ pos + 1 over every slot, idle
+ones at pos 0 included; on the CPU every slot's every page). They
+record only under ``torch.profiler`` or ``telemetry.recording()``, and
+never wait for the device.
 """
 from __future__ import annotations
 
@@ -73,6 +76,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import HRMPolicy, MemoryDomain, Response, Tier, tree
 from repro_torch.core.availability import MINUTES_PER_MONTH
 from repro_torch.core.trace import BoundStrike, ErrorTrace, bind_trace
+from repro_torch.kernels.paged_attn import positions_read
 from repro_torch.models.transformer import paged_decode_step, prefill_write
 from repro_torch.serve.decode_graph import DecodeGraph
 from repro_torch.serve.metrics import SLOCounters, SLOReport, build_report
@@ -243,10 +247,11 @@ class OnlineEngine:
         the slots the step runs over and those a request holds."""
         with telemetry.span("engine.decode"):
             with telemetry.span("decode.inputs"):
-                tokens, pos = self.sched.batch_inputs()
+                tokens, host_pos = self.sched.batch_inputs()
                 t0 = time.perf_counter()
                 table = self.cache.device_table()
-                tokens, pos = self._as_device(tokens), self._as_device(pos)
+                tokens, pos = (self._as_device(tokens),
+                               self._as_device(host_pos))
             with telemetry.span("decode.dispatch"):
                 nxt, ok = self._decode(self._params(), self.cache.pools,
                                        table, tokens, pos, self.cfg,
@@ -262,6 +267,9 @@ class OnlineEngine:
                         if s is not None))
                     telemetry.count("mla_positions_gathered",
                                     int(table.numel()) * self._page_size)
+                else:
+                    telemetry.count("attn_positions_read", positions_read(
+                        table, host_pos, self._page_size))
         return nxt, ok, time.perf_counter() - t0
 
     # -------------------------------------------------------- fault plane
